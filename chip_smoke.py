@@ -17,8 +17,17 @@ Phases (any failure exits non-zero; nothing is caught and turned into 0):
    kernel path of the frontier store, then the task's recommendation.
 4. Main path, coalesced tenants: one task per workload of ``batch_suite()``
    (258 tenants), ten rounds of ``coalesce_step`` over ``solve_grouped``.
-5. Assertions: fused dispatches, no fallbacks, every kernel launched on the
-   main path, no JAX or ``repro`` module loaded, everything on ``cuda``.
+5. The service: one ``MOOService`` holding the 258 tenants, the 5-stage ETL
+   job of ``examples/multistage_job.py`` and an 8-stage random
+   series-parallel job (``benchmarks/expt5_multistage.py``'s
+   ``make_job(8, seed=8)``) as DAG sessions; coalesced ``step_all`` rounds,
+   ``recommend`` for every tenant, ``recommend_dag`` for both jobs through
+   the pairwise-compose kernel, then ``solve_dag`` on the 8-stage job at
+   expt5's full size.
+6. Assertions: fused dispatches, no fallbacks, every kernel launched on its
+   path, no JAX or ``repro`` module loaded, everything on ``cuda``.
+
+Phase 2 also holds ``pairwise_compose`` to its plain version bit for bit.
 
 The last two lines of standard output are the kernels' JSON record and the
 device JSON line.  Without a CUDA device, or outside the repository, the
@@ -187,6 +196,103 @@ def pareto_timing(dev, N: int, M: int, k: int, reps: int = 200) -> dict:
     return {"shape": [N, M, k], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _same_bits(got, want) -> bool:
+    """Equal shapes, NaN in the same places, every other float equal bit
+    for bit."""
+    import torch
+
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return False
+    nan_g, nan_w = torch.isnan(got), torch.isnan(want)
+    if not torch.equal(nan_g, nan_w):
+        return False
+    keep = ~nan_g
+    return torch.equal(got[keep].view(torch.int32),
+                       want[keep].view(torch.int32))
+
+
+def _compose_inputs(n: int, m: int, k: int, seed: int, dev, nan: bool):
+    """Random stage frontiers with +inf rows (and, with ``nan``, one NaN
+    entry in each), plus an add/max mask that mixes both operators."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for rows in (n, m):
+        F = rng.uniform(0.5, 4.0, (rows, k)).astype(np.float32)
+        if rows >= 4:
+            F[rng.choice(rows, size=max(1, rows // 8), replace=False)] = np.inf
+            if nan:
+                F[rng.integers(0, rows), rng.integers(0, k)] = np.nan
+        out.append(torch.as_tensor(F).to(dev))
+    mask = np.arange(k) % 2 == 1  # max on objective 0, as a parallel join
+    return out[0], out[1], mask
+
+
+def phase_compose(dev) -> float:
+    """pairwise_compose == its plain version, bit for bit (NaN where the
+    plain version has NaN).  Returns the largest |kernel - plain| measured
+    over the finite entries of every case."""
+    import torch
+
+    from repro_torch.kernels.compose import (
+        pairwise_compose_blocked,
+        pairwise_compose_plain,
+    )
+
+    shapes = [(n, m) for n in (1, 7, 130, 1000) for m in (1, 5, 129, 4096)]
+    shapes += [(0, 5), (5, 0), (102, 40), (64, 64), (4096, 4096)]
+    cases, worst = 0, 0.0
+    for k in (2, 3, 5):
+        for n, m in shapes:
+            if k != 2 and n * m > 4096 * 1000:
+                continue  # the largest shape is timed below at k = 2
+            for nan in (False, True):
+                FA, FB, mask = _compose_inputs(n, m, k, 31 * n + m + k, dev,
+                                               nan)
+                for add in (mask, ~mask):
+                    got = pairwise_compose_blocked(FA, FB, add)
+                    want = pairwise_compose_plain(FA, FB, add)
+                    torch.cuda.synchronize()
+                    if not _same_bits(got, want):
+                        fail(f"pairwise_compose differs from its plain "
+                             f"version at N={n} M={m} k={k} nan={nan}")
+                    both = torch.isfinite(got) & torch.isfinite(want)
+                    if both.any():
+                        worst = max(worst, float(
+                            (got[both] - want[both]).abs().max()))
+                    cases += 1
+    log(f"compose: {cases} cases bit for bit, max |d| {worst:g}")
+    return worst
+
+
+def compose_timing(dev, N: int, M: int, k: int, reps: int = 200) -> dict:
+    """Kernel and plain times of pairwise_compose at (N, M, k) with a mixed
+    add/max mask (a parallel join: no single PyTorch call computes it),
+    and, as a yardstick, one broadcast ``torch.add`` of the same inputs
+    (what a series join with every objective summed computes)."""
+    import torch
+
+    from repro_torch.kernels.compose import (
+        pairwise_compose_blocked,
+        pairwise_compose_plain,
+    )
+
+    FA, FB, mask = _compose_inputs(N, M, k, 17, dev, nan=False)
+    ms = time_ms(lambda: pairwise_compose_blocked(FA, FB, mask), reps)
+    plain_ms = time_ms(lambda: pairwise_compose_plain(FA, FB, mask), reps)
+    add_ms = time_ms(lambda: torch.add(FA[:, None, :], FB[None, :, :]), reps)
+    nbytes = (N + M) * k * 4 + N * M * k * 4
+    ops = N * M * k
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = ops / PEAK_FP32_S * 1e3
+    return {"shape": [N, M, k], "ms": ms, "plain_ms": plain_ms,
+            "broadcast_add_ms": add_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "gb_s": nbytes / (ms * 1e-3) / 1e9}
 
 
 def descend_case(dev, G: int, R: int, S: int, D: int = 13,
@@ -411,7 +517,8 @@ def check_frontier(res, problem, label: str) -> None:
     from repro_torch.core import pareto_mask
 
     F, X = res.F, res.X
-    if F.ndim != 2 or F.shape[1] != 2 or X.shape != (len(F), 13) or not len(F):
+    if (F.ndim != 2 or F.shape[1] != 2 or X.shape != (len(F), problem.dim)
+            or not len(F)):
         fail(f"{label}: frontier shape F{F.shape} X{X.shape}")
     if not (np.all(np.isfinite(F)) and np.all(np.isfinite(X))):
         fail(f"{label}: non-finite frontier")
@@ -527,6 +634,189 @@ def phase_tenants(dev, rounds: int = 10) -> dict:
             "stats": stats}
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: the service, with multi-stage jobs
+# ---------------------------------------------------------------------------
+
+ETL_STAGES = (  # examples/multistage_job.py: theta = (work, base_s,
+    ("extract", (3.0, 0.4, 0.3, 0.6)),  # mem_sensitivity, price)
+    ("transform_a", (2.0, 0.2, 0.9, 0.8)),
+    ("transform_b", (4.5, 0.3, 0.5, 0.5)),
+    ("join", (2.5, 0.5, 1.2, 1.0)),
+    ("report", (1.0, 0.1, 0.2, 0.4)),
+)
+ETL_EDGES = (("extract", "transform_a"), ("extract", "transform_b"),
+             ("transform_a", "join"), ("transform_b", "join"),
+             ("join", "report"))
+
+
+def etl_job(dev):
+    """The 5-stage ETL job of examples/multistage_job.py."""
+    from repro_torch.core import JobDAG, make_analytics_family
+
+    fam = make_analytics_family(device=dev)
+    return JobDAG([fam.stage(n, th) for n, th in ETL_STAGES], ETL_EDGES,
+                  name="etl")
+
+
+def expt5_job(n_stages: int, seed: int, dev):
+    """benchmarks/expt5_multistage.py's make_job: a random n-stage
+    series-parallel analytics job (latency, cost)."""
+    import numpy as np
+
+    from repro_torch.core import (
+        JobDAG,
+        make_analytics_family,
+        random_series_parallel_edges,
+    )
+
+    rng = np.random.default_rng(seed)
+    fam = make_analytics_family(device=dev)
+    names = [f"s{i}" for i in range(n_stages)]
+    stages = [fam.stage(n, rng.uniform([1.0, 0.2, 0.1, 0.3],
+                                       [6.0, 1.0, 1.5, 1.2]))
+              for n in names]
+    return JobDAG(stages, random_series_parallel_edges(names, rng),
+                  name=f"job{n_stages}")
+
+
+def check_composed(dag, comp, stage_frontiers, label: str) -> None:
+    """A composed DAG frontier is right: finite, mutually non-dominated,
+    equal (sorted, 1e-5) to the host's composition of the same stage
+    frontiers without the kernels, and its rows decode to stage
+    configurations inside their knob ranges."""
+    import numpy as np
+
+    from repro_torch.core import pareto_mask
+
+    F, X = comp.F, comp.X
+    if F.ndim != 2 or F.shape[1] != dag.k or X.shape != (len(F), dag.dim):
+        fail(f"{label}: composed frontier shape F{F.shape} X{X.shape}")
+    if not len(F) or not np.all(np.isfinite(F)):
+        fail(f"{label}: empty or non-finite composed frontier")
+    if not bool(pareto_mask(F).all()):
+        fail(f"{label}: composed points dominate each other")
+    host = dag.compose_frontiers(stage_frontiers, use_kernel=False,
+                                 device="cpu")
+    if host.F.shape != F.shape or not np.allclose(
+            np.sort(host.F, axis=0), np.sort(F, axis=0), rtol=1e-5,
+            atol=1e-5):
+        fail(f"{label}: composed frontier differs from the host's "
+             f"({len(F)} vs {len(host.F)} points)")
+    for row in X:
+        for name, cfg in dag.decode(row).items():
+            for spec in dag.stage(name).task.knobs:
+                v = cfg[spec.name]
+                if not spec.low <= v <= spec.high:
+                    fail(f"{label}: stage {name} knob {spec.name}={v} "
+                         f"outside [{spec.low}, {spec.high}]")
+
+
+def phase_service(dev, rounds: int = 4) -> dict:
+    """MOOService with the reference's defaults over 258 tenants and two
+    DAG jobs; recommendations; then solve_dag at expt5's full size."""
+    import torch
+
+    from repro_torch.core import MOGDConfig, solve_dag
+    from repro_torch.data.workloads import batch_suite
+    from repro_torch.service import MOOService
+
+    suite = batch_suite()
+    t0 = time.perf_counter()
+    # max_sessions raised from the default 256: 258 tenants plus 13 stage
+    # sessions
+    svc = MOOService(use_kernel=True, max_sessions=512, device=dev)
+    sids = [svc.create_session(spark_task(1 + i, dev, w))
+            for i, w in enumerate(suite)]
+    jobs = {"etl": etl_job(dev), "job8": expt5_job(8, 8, dev)}
+    dags = {name: svc.create_dag_session(job) for name, job in jobs.items()}
+    setup = time.perf_counter() - t0
+    log(f"service: {len(sids)} tenant sessions, DAG sessions "
+        f"{list(dags)}, {svc.stats()['sessions']} sessions in "
+        f"{setup:.1f} s")
+    ex = svc.executor
+    tracer = svc.obs.tracer
+    tracer.enabled = True
+    per_round = []
+    for r in range(rounds):
+        d0 = ex.dispatches
+        tracer.clear()
+        t1 = time.perf_counter()
+        out = svc.step_all(rounds=1)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t1
+        dispatch_s = sum(sp.t1 - sp.t0 for sp in tracer.spans()
+                         if sp.name == "exec.dispatch")
+        each = sorted((sp.t1 - sp.t0 for sp in tracer.spans()
+                       if sp.name == "exec.dispatch"), reverse=True)
+        per_round.append({
+            "round": r, "seconds": seconds, "dispatch_s": dispatch_s,
+            "dispatch_share": dispatch_s / seconds,
+            "dispatches": ex.dispatches - d0,
+            "largest_dispatches_s": each[:3], **out})
+        log(f"service round {r}: {per_round[-1]}")
+    tracer.enabled = False
+    t1 = time.perf_counter()
+    recs = [svc.recommend(sid) for sid in sids]
+    recommend_s = time.perf_counter() - t1
+    for sid in sids:
+        sess = svc._sessions[sid]
+        check_frontier(sess.engine.finalize(sess.state), sess.problem,
+                       f"service tenant {sid}")
+    if any(len(r.config) != 12 for r in recs):
+        fail("a tenant's recommendation does not set the 12 Spark knobs")
+    from repro_torch.kernels import platform
+
+    dag_out = {}
+    for name, did in dags.items():
+        comp_ms = []
+        for _ in range(3):
+            before = platform.launch_counts()
+            t1 = time.perf_counter()
+            rec = svc.recommend_dag(did)
+            comp_ms.append((time.perf_counter() - t1) * 1e3)
+            after = platform.launch_counts()
+        per_call = {kname: after.get(kname, 0) - before.get(kname, 0)
+                    for kname in ("pairwise_compose",
+                                  "cross_dominator_counts")}
+        comp = svc.dag_frontier(did)
+        stage_frontiers = {n: svc.frontier(sid) for n, sid in
+                           svc._dags[did].stage_sids.items()}
+        check_composed(jobs[name], comp, stage_frontiers, f"DAG {name}")
+        dag_out[name] = {
+            "stages": len(jobs[name].stages), "edges": len(jobs[name].edges),
+            "stage_points": {n: len(F) for n, (F, _) in
+                             stage_frontiers.items()},
+            "points": len(comp), "recommend_dag_ms": comp_ms,
+            "launches_per_recommend_dag": per_call,
+            "objectives": rec.objectives.tolist()}
+        log(f"DAG {name}: {dag_out[name]}")
+    stats = svc.stats()
+    ex_stats = ex.stats()
+    log(f"service stats: {stats}")
+    log(f"service executor stats: {ex_stats}")
+
+    # solve_dag on expt5's 8-stage job at its full size
+    job = expt5_job(8, 8, dev)
+    t1 = time.perf_counter()
+    res = solve_dag(job, n_probes_per_stage=48,
+                    mogd=MOGDConfig(steps=60, multistart=8), batch_rects=4,
+                    use_kernel=True, device=dev)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t1
+    check_composed(job, res.frontier, res.stage_frontiers, "solve_dag job8")
+    sd = {"seconds": solve_s, "probes": res.probes,
+          "unique_stages": res.unique_stages,
+          "dispatches": res.dispatches, "points": len(res.frontier)}
+    log(f"solve_dag job8: {sd}")
+    for obj in (svc.executor, *(svc._sessions[s].state.store for s in sids)):
+        if obj.device.type != "cuda":
+            fail(f"service: {type(obj).__name__} on {obj.device}")
+    return {"tenants": len(sids), "setup_s": setup, "rounds": per_round,
+            "recommend_all_s": recommend_s, "dags": dag_out,
+            "solve_dag": sd, "stats": stats, "executor": ex_stats}
+
+
 def main() -> int:
     """Run the phases; exit code 0 only when every check held."""
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -537,7 +827,15 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
+    t_start = time.perf_counter()
+    phase_s = {}
+
+    def mark(name: str) -> None:
+        phase_s[name] = time.perf_counter() - t_start - sum(phase_s.values())
+        log(f"phase {name}: {phase_s[name]:.1f} s")
+
     card = phase_card()
+    mark("card_and_build")
     dev = torch.device("cuda", 0)
     from repro_torch.kernels import platform
 
@@ -549,21 +847,39 @@ def main() -> int:
     log(f"pareto timing 4096x4096: {p_big}")
     d = phase_descend(dev)
     log(f"descend timing: {d}")
+    c_err = phase_compose(dev)
+    mark("kernels")
 
     # phase 3: the main path, one task (launch counts of this run only)
     platform.reset_launches()
     single = phase_single_task(dev)
     launches = platform.launch_counts()
     log(f"main-path launches: {launches}")
+    mark("single_task")
     # phase 4: coalesced tenants (counted separately)
     platform.reset_launches()
     tenants = phase_tenants(dev)
     tenant_launches = platform.launch_counts()
     log(f"tenant-path launches: {tenant_launches}")
+    mark("tenants")
+    # phase 5: the service with DAG jobs (counted separately)
+    platform.reset_launches()
+    service = phase_service(dev)
+    service_launches = platform.launch_counts()
+    log(f"service-path launches: {service_launches}")
+    # the compose kernel's time at a shape of its path: the ETL job's
+    # extract x transform_a stage frontiers
+    pts = service["dags"]["etl"]["stage_points"]
+    c_main = compose_timing(dev, pts["extract"], pts["transform_a"], 2)
+    c_big = compose_timing(dev, 4096, 4096, 2, reps=20)
+    log(f"compose timing path shape: {c_main}")
+    log(f"compose timing 4096x4096: {c_big}")
+    mark("service")
 
-    # phase 5: assertions
+    # phase 6: assertions
     for label, st in (("single task", single["stats"]),
-                      ("tenants", tenants["stats"])):
+                      ("tenants", tenants["stats"]),
+                      ("service", service["executor"])):
         if st["fused_dispatches"] <= 0:
             fail(f"{label}: no fused dispatch")
         if st["fused_fallbacks"] != 0:
@@ -571,6 +887,10 @@ def main() -> int:
     for name in ("descend_batch", "cross_dominator_counts"):
         if launches.get(name, 0) <= 0 or tenant_launches.get(name, 0) <= 0:
             fail(f"kernel {name} was not launched on the main path")
+    for name in ("descend_batch", "cross_dominator_counts",
+                 "pairwise_compose"):
+        if service_launches.get(name, 0) <= 0:
+            fail(f"kernel {name} was not launched on the service path")
     bad = sorted(m for m in sys.modules
                  if m == "jax" or m.startswith(("jax.", "jaxlib"))
                  or m == "repro" or m.startswith("repro."))
@@ -592,16 +912,41 @@ def main() -> int:
          "max_abs_err": d["max_abs_err"], "ms": d["ms"],
          "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
          "bound_by": d["bound_by"], "library_ms": None},
+        {"name": "pairwise_compose", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/compose.cu",
+         "replaces": "src/repro/kernels/compose.py:31",
+         "launches": service_launches["pairwise_compose"],
+         "max_abs_err": c_err, "ms": c_main["ms"],
+         "plain_ms": c_main["plain_ms"], "bound_ms": c_main["bound_ms"],
+         "bound_by": c_main["bound_by"], "library_ms": None},
     ]
     summary = {"single_task": {k: v for k, v in single.items()
                                if k != "stats"},
                "tenants": {k: v for k, v in tenants.items() if k != "stats"},
-               "pareto_4096": p_big, "descend": d}
+               "service": {k: v for k, v in service.items()
+                           if k not in ("stats", "executor")},
+               "service_stats": service["stats"],
+               "launches": {"single_task": launches,
+                            "tenants": tenant_launches,
+                            "service": service_launches},
+               "pareto_4096": p_big, "descend": d,
+               "compose_path": c_main, "compose_4096": c_big,
+               "phase_s": phase_s}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kernels": kernels, **summary}, indent=1,
         default=str))
+    print(json.dumps({"service": {
+        "round_s": [r["seconds"] for r in service["rounds"]],
+        "dispatch_share": [r["dispatch_share"] for r in service["rounds"]],
+        "dispatches_per_round": [r["dispatches"]
+                                 for r in service["rounds"]],
+        "recommend_dag_ms": {name: dag["recommend_dag_ms"]
+                             for name, dag in service["dags"].items()},
+        "solve_dag_s": service["solve_dag"]["seconds"],
+        "solve_dag_dispatches": service["solve_dag"]["dispatches"]}}),
+        flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

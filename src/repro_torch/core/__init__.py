@@ -8,6 +8,7 @@ Public API::
         MOOProblem, continuous, integer, categorical, boolean,
         MOGDConfig, MOGDSolver,
         ProgressiveFrontier, solve_pf,
+        JobDAG, StageSpec, StageFamily, solve_dag,  # multi-stage jobs
         utopia_nearest, weighted_utopia_nearest,
         pareto_mask, pareto_filter, hypervolume,
     )
@@ -68,6 +69,17 @@ from .progressive_frontier import (
     live_seed_points,
     solve_pf,
 )
+from .dag import (
+    ComposedFrontier,
+    DAGResult,
+    FamilySolver,
+    JobDAG,
+    StageFamily,
+    StageSpec,
+    make_analytics_family,
+    random_series_parallel_edges,
+    solve_dag,
+)
 from .recommend import (
     WorkloadClassWeights,
     classify_workload,
@@ -98,21 +110,24 @@ from .task import (
 )
 
 __all__ = [
-    "COResult", "FrontierStore", "MOGDConfig", "MOGDSolver", "MOOProblem",
+    "COResult", "ComposedFrontier", "DAGResult", "FamilySolver",
+    "FrontierStore", "JobDAG", "MOGDConfig", "MOGDSolver", "MOOProblem",
     "Objective", "PFResult", "PFState", "PopInfo", "Preference",
     "ProgressiveFrontier", "Rectangle", "RectangleQueue", "SpaceEncoder",
-    "TaskSpec", "UtopiaNearest", "VariableSpec", "WeightedUtopiaNearest",
-    "WorkloadAware", "WorkloadClassWeights", "as_problem", "boolean",
-    "bound_scales", "categorical", "classify_workload", "coalesce_step",
-    "compute_bounds", "continuous", "coverage_spread", "crowding_distance",
-    "dominates", "estimate_objective_bounds", "export_pf_state",
-    "feasible_mask", "frontier_hypervolume", "grid_cells",
-    "grid_reference_solve", "hypervolume", "hypervolume_2d",
-    "import_pf_state", "integer", "live_seed_points", "make_dtlz2",
+    "StageFamily", "StageSpec", "TaskSpec", "UtopiaNearest",
+    "VariableSpec", "WeightedUtopiaNearest", "WorkloadAware",
+    "WorkloadClassWeights", "as_problem", "boolean", "bound_scales",
+    "categorical", "classify_workload", "coalesce_step", "compute_bounds",
+    "continuous", "coverage_spread", "crowding_distance", "dominates",
+    "estimate_objective_bounds", "export_pf_state", "feasible_mask",
+    "frontier_hypervolume", "grid_cells", "grid_reference_solve",
+    "hypervolume", "hypervolume_2d", "import_pf_state", "integer",
+    "live_seed_points", "make_analytics_family", "make_dtlz2",
     "make_mixed_problem", "make_rectangle", "make_sphere2", "make_zdt1",
     "mlp_surrogate_task", "pareto_filter", "pareto_filter_masked",
-    "pareto_mask", "preference_from_legacy", "select",
-    "single_objective_box", "solve_grouped", "solve_pf", "sphere2_task",
+    "pareto_mask", "preference_from_legacy",
+    "random_series_parallel_edges", "select", "single_objective_box",
+    "solve_dag", "solve_grouped", "solve_pf", "sphere2_task",
     "split_rectangle", "utopia_nearest", "weighted_single_objective_pick",
     "weighted_utopia_nearest", "workload_aware_wun", "zdt1_task",
 ]

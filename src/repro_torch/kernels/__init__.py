@@ -4,6 +4,8 @@ plain PyTorch version (the CPU tier and the kernel's oracle on the card).
     pareto_filter   cross-set Pareto dominator counts (csrc/pareto_filter.cu)
     mogd_descend    fused multi-start projected-Adam MOGD descent
                     (csrc/mogd_descend.cu)
+    compose         all-pairs frontier composition for DAG jobs
+                    (csrc/compose.cu)
 
 ``platform`` holds the device policy, ``native`` builds and loads the CUDA
 library, ``ref`` holds the autodiff oracles and ``ops`` the public wrappers.

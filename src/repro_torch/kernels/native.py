@@ -22,7 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
-SOURCES = ("pareto_filter.cu", "mogd_descend.cu")
+SOURCES = ("pareto_filter.cu", "mogd_descend.cu", "compose.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # No --use_fast_math: expf/cosf/powf/sqrtf and division stay IEEE, and
 # -fmad=false keeps elementwise a*b+c rounded twice, as PyTorch's separate
@@ -130,6 +130,9 @@ def library() -> ctypes.CDLL:
                 _I, _F, _F, _F, _F, _F, _F, _F, _F, _F,  # hyperparameters
                 _I, _VP, _VP]  # smem bytes, out, stream
             lib.mogd_descend.restype = _I
+            lib.pairwise_compose.argtypes = [
+                _VP, _VP, _I, _I, _I, ctypes.c_uint, _VP, _VP]
+            lib.pairwise_compose.restype = _I
             lib.mogd_plan_bytes.argtypes = []
             lib.mogd_plan_bytes.restype = _I
             lib.repro_cuda_error_string.argtypes = [_I]

@@ -99,3 +99,17 @@ def pareto_counts(F):
     lt = torch.any(F[:, None, :] < F[None, :, :], dim=-1)
     dom = le & lt  # dom[i, j] = i dominates j
     return dom.sum(dim=0).to(torch.int32)
+
+
+def pairwise_compose(FA, FB, add_mask):
+    """All-pairs frontier composition: ``FA: (N, k)`` x ``FB: (M, k)`` ->
+    ``(N*M, k)`` in row-major order (row ``i*M + j`` composes ``FA[i]``
+    with ``FB[j]``).  Objective ``o`` composes as ``FA+FB`` where
+    ``add_mask[o]`` (series latency, summed cost) and as ``max(FA, FB)``
+    otherwise (parallel branches on the critical path)."""
+    FA, FB = torch.as_tensor(FA), torch.as_tensor(FB)
+    m = torch.as_tensor(add_mask, dtype=torch.bool,
+                        device=FA.device)[None, None, :]
+    comp = torch.where(m, FA[:, None, :] + FB[None, :, :],
+                       torch.maximum(FA[:, None, :], FB[None, :, :]))
+    return comp.reshape(-1, FA.shape[-1])

@@ -47,7 +47,10 @@ def test_every_module_is_covered():
                  "repro_torch.kernels.mogd_descend",
                  "repro_torch.kernels.pareto_filter",
                  "repro_torch.models.convert", "repro_torch.obs.trace",
-                 "repro_torch.data.workloads"):
+                 "repro_torch.data.workloads", "repro_torch.alloc.features",
+                 "repro_torch.alloc.policy", "repro_torch.core.dag",
+                 "repro_torch.kernels.compose",
+                 "repro_torch.service.moo_service"):
         assert want in mods
 
 

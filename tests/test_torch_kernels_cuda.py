@@ -11,7 +11,9 @@ and no JAX it runs on its own::
 main path's shapes; these cases add shapes it does not reach (a ``k`` with
 no compile-time specialization, a narrow surrogate).
 
-Tolerances: dominator counts are integers and compared exactly; the narrow
+Tolerances: dominator counts are integers and compared exactly; composed
+frontiers (fp32 adds and maxima, correctly rounded) bit for bit, with NaN
+where the plain version has NaN; the narrow
 descent (width 16, 25 steps) at ``atol=2e-5``, the reference's own
 tolerance (``tests/test_mogd_descend.py``).
 """
@@ -23,6 +25,10 @@ import pytest
 import torch
 
 from repro_torch.core.mogd import MOGDConfig
+from repro_torch.kernels.compose import (
+    pairwise_compose_blocked,
+    pairwise_compose_plain,
+)
 from repro_torch.kernels.mogd_descend import (
     DescendPlan,
     descend_batch,
@@ -53,6 +59,29 @@ def _front(n, k, seed, inf_rows=0, dups=0):
             i, j = rng.integers(0, n, size=2)
             F[i] = F[j]
     return F
+
+
+def _same_bits(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Equal shapes, NaN in the same places, every other float equal bit
+    for bit."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return False
+    nan_g, nan_w = torch.isnan(got), torch.isnan(want)
+    if not torch.equal(nan_g, nan_w):
+        return False
+    keep = ~nan_g
+    return torch.equal(got[keep].view(torch.int32),
+                       want[keep].view(torch.int32))
+
+
+def _compose_case(n, m, k, seed, device, nan=False):
+    F = [torch.as_tensor(_front(r, k, seed + i, r // 4)).to(device)
+         for i, r in enumerate((n, m))]
+    if nan and n and m:
+        F[0][n // 2, 0] = float("nan")
+        F[1][m - 1, k - 1] = float("nan")
+    mask = torch.as_tensor(np.arange(k) % 2 == 0)
+    return F[0], F[1], mask
 
 
 def _group_params(rng, dims, G, k, device):
@@ -107,3 +136,15 @@ class TestKernelsOnCard:
         want = descend_batch_plain(plan, cfg, params, *batch)
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                    atol=ATOL_DESCEND, rtol=0)
+
+    @pytest.mark.parametrize("n,m,k,nan", [
+        (0, 3, 2, False), (3, 0, 2, False), (1, 1, 2, False),
+        (7, 5, 2, True), (130, 200, 3, True), (50, 60, 5, True),
+        (4096, 1, 2, False), (1, 4096, 3, False), (33, 1000, 2, True)])
+    def test_compose_kernel_equals_plain(self, cuda_device, n, m, k, nan):
+        FA, FB, mask = _compose_case(n, m, k, 3, cuda_device, nan)
+        for add in (mask, ~mask):
+            got = pairwise_compose_blocked(FA, FB, add)
+            want = pairwise_compose_plain(FA, FB, add)
+            assert got.shape == (n * m, k)
+            assert _same_bits(got, want)
