@@ -24,10 +24,19 @@ Phases (any failure exits non-zero; nothing is caught and turned into 0):
    ``recommend`` for every tenant, ``recommend_dag`` for both jobs through
    the pairwise-compose kernel, then ``solve_dag`` on the 8-stage job at
    expt5's full size.
-6. Assertions: fused dispatches, no fallbacks, every kernel launched on its
+6. The model server at the paper's width: one ``ModelRegistry`` training
+   4 x 128 MLP surrogates over the 12 Spark knobs for eight
+   ``batch_suite()`` workloads (2,048 traces each) and a GP for a ninth,
+   gated promotion to v1, one ``create_workload_session`` each on one
+   ``MOOService``, then traces from another workload's surface streamed into
+   one workload until drift fires, the inline retrain to v2 and the warm
+   re-solve of its session.
+7. Assertions: fused dispatches, no fallbacks, every kernel launched on its
    path, no JAX or ``repro`` module loaded, everything on ``cuda``.
 
-Phase 2 also holds ``pairwise_compose`` to its plain version bit for bit.
+Phase 2 also holds ``pairwise_compose`` to its plain version bit for bit,
+and ``mlp_forward`` (the fused surrogate forward), its gradients and a
+``vmap(grad)`` through ``MLPRegressor`` to theirs.
 
 The last two lines of standard output are the kernels' JSON record and the
 device JSON line.  Without a CUDA device, or outside the repository, the
@@ -57,6 +66,15 @@ EXACT_STEPS = (1, 10)  # descents short enough that every element must agree
 GRAD_EPS = 1e6  # Adam eps far above any |dL/dx|: the step is linear in it
 GRAD_RATIOS = (1e-3, 1e-2, 1e-1, 1.0)  # lr/eps: steps of 1e-3..1 x |dL/dx|
 CHAOS_FACTOR = 2  # full descent: rows apart, relative to the control
+PAPER_DIMS = (13, *PAPER_HIDDEN, 1)
+# the fused MLP forward: tests/test_kernels.py::TestMogdMLP (2e-5, 3e-5 at
+# the paper shape) and tests/test_mogd_descend.py::TestFusedMLPVJP (1e-4)
+MLP_TOL, MLP_PAPER_TOL, MLP_GRAD_TOL = 2e-5, 3e-5, 1e-4
+# the model-server phase
+MS_WORKLOADS = 8  # MLP workloads of batch_suite(), plus one GP workload
+MS_TRACES = 2048  # per workload: half of the registry's max_traces
+SHIFT_ROWS = 256  # traces streamed from another surface (= trim_on_drift)
+MS_PROBES = 32
 
 
 def log(*args) -> None:
@@ -293,6 +311,157 @@ def compose_timing(dev, N: int, M: int, k: int, reps: int = 200) -> dict:
             "broadcast_add_ms": add_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "gb_s": nbytes / (ms * 1e-3) / 1e9}
+
+
+def _mlp_inputs(dims, B: int, seed: int, dev, w_scale=0.1, b_scale=0.05,
+                uniform: bool = False):
+    """Random weights and inputs of an MLP with layer widths ``dims``."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+    ws = [f32(rng.normal(size=(dims[i], dims[i + 1])) * w_scale)
+          for i in range(len(dims) - 1)]
+    bs = [f32(rng.normal(size=(dims[i + 1],)) * b_scale)
+          for i in range(len(dims) - 1)]
+    x = rng.random((B, dims[0])) if uniform else rng.normal(size=(B, dims[0]))
+    return f32(x), ws, bs
+
+
+def _close(got, want, tol: float, label: str) -> float:
+    """Fail unless ``|got - want| <= tol + tol*|want|`` everywhere (the
+    reference tests' rtol = atol); returns the largest |got - want|."""
+    import torch
+
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        fail(f"{label}: shape {tuple(got.shape)} vs {tuple(want.shape)} or "
+             f"non-finite")
+    diff = (got - want).abs()
+    if bool((diff > tol + tol * want.abs()).any()):
+        fail(f"{label}: max |d| {float(diff.max()):.3e} beyond {tol:g}")
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def phase_mlp(dev) -> dict:
+    """mlp_forward against its plain version on the card: the forward at
+    the reference test's batches and depths and at the paper shape, the
+    gradients through the autograd.Function against autograd through the
+    plain version, and vmap(grad) through MLPRegressor.forward."""
+    import torch
+    from torch.func import grad, vmap
+
+    from repro_torch.kernels import platform, ref
+    from repro_torch.kernels.mogd_mlp import mlp_forward_cuda, mlp_forward_fused
+    from repro_torch.models import MLPRegressor, MLPSpec, init_mlp
+
+    fwd, cases = 0.0, 0
+    for depth in (1, 2, 4):
+        for B in (1, 7, 256, 300, 4096):
+            x, ws, bs = _mlp_inputs((24, *(128,) * depth, 1), B,
+                                    10 * B + depth, dev)
+            fwd = max(fwd, _close(mlp_forward_cuda(x, ws, bs),
+                                  ref.mlp_forward(x, ws, bs), MLP_TOL,
+                                  f"mlp_forward B={B} depth={depth}"))
+            cases += 1
+    for B in (1024, 4096, 409):
+        x, ws, bs = _mlp_inputs(PAPER_DIMS, B, B, dev, 0.2, 0.1, True)
+        fwd = max(fwd, _close(mlp_forward_cuda(x, ws, bs),
+                              ref.mlp_forward(x, ws, bs), MLP_PAPER_TOL,
+                              f"mlp_forward paper shape B={B}"))
+        cases += 1
+    grads = 0.0
+    for B in (5, 256, 300, 4096):  # TestFusedMLPVJP's network and inputs
+        x, ws, bs = _mlp_inputs((6, 32, 32, 1), B, B + 1, dev, 0.3, 0.1,
+                                True)
+        got = [t.clone().requires_grad_() for t in (x, *ws, *bs)]
+        want = [t.clone().requires_grad_() for t in (x, *ws, *bs)]
+        (mlp_forward_fused(got[0], got[1:4], got[4:]) ** 2).sum().backward()
+        (ref.mlp_forward(want[0], want[1:4], want[4:]) ** 2).sum().backward()
+        for i, (g, w) in enumerate(zip(got, want)):
+            grads = max(grads, _close(g.grad, w.grad, MLP_GRAD_TOL,
+                                      f"mlp_forward grad {i} B={B}"))
+    # vmap(grad) through a paper-shape regressor (He-init weights, as
+    # init_mlp draws them), against the same standardized forward through
+    # the plain version
+    spec = MLPSpec(13, PAPER_HIDDEN, 1)
+    layers = init_mlp(torch.Generator().manual_seed(3), spec, device=dev)
+    ws = [layer["w"] for layer in layers]
+    bs = [layer["b"] for layer in layers]
+    x = _mlp_inputs(PAPER_DIMS, 256, 3, dev, uniform=True)[0]
+    xm = torch.full((13,), 0.5, device=dev)
+    xs = torch.full((13,), 0.29, device=dev)
+    ym = torch.tensor([0.3], device=dev)
+    ys = torch.tensor([0.7], device=dev)
+    reg = MLPRegressor(spec, layers, xm, xs, ym, ys, log_target=True)
+
+    def plain(r):
+        y = ref.mlp_forward(((r - xm) / xs)[None], ws, bs)[0] * ys + ym
+        return torch.exp(y[0])
+
+    before = platform.launch_counts().get("mlp_forward", 0)
+    got = vmap(grad(reg))(x)
+    if platform.launch_counts().get("mlp_forward", 0) <= before:
+        fail("vmap(grad) through MLPRegressor did not launch mlp_forward")
+    vg = _close(got, vmap(grad(plain))(x), MLP_GRAD_TOL,
+                "vmap(grad) through MLPRegressor")
+    log(f"mlp_forward: {cases} forward cases, max |d| {fwd:.3e}; gradients "
+        f"max |d| {grads:.3e}; vmap(grad) through MLPRegressor max |d| "
+        f"{vg:.3e}")
+    return {"max_abs_err": fwd, "grad_err": grads, "vmap_grad_err": vg,
+            "cases": cases}
+
+
+def device_ms(fn, reps: int = 50, name: str | None = None):
+    """Mean device time per call of ``fn`` from the profiler's CUDA kernel
+    records (all kernels, or those whose name contains ``name``), or None
+    when the profiler records no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA or (
+                name is not None and name not in ev.key):
+            continue
+        total += getattr(ev, "device_time_total",
+                         getattr(ev, "cuda_time_total", 0.0))
+    return total / reps / 1e3 if total > 0 else None
+
+
+def mlp_timing(dev, B: int, reps: int = 200) -> dict:
+    """Kernel and plain times of mlp_forward at the paper shape over B
+    rows, with its bound.  ``ms``/``plain_ms`` are back-to-back calls timed
+    with CUDA events (what a caller waits); ``device_ms``/
+    ``plain_device_ms`` the kernels' own time from the profiler."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mogd_mlp import mlp_forward_cuda
+
+    x, ws, bs = _mlp_inputs(PAPER_DIMS, B, 11, dev, 0.2, 0.1, True)
+    ms = time_ms(lambda: mlp_forward_cuda(x, ws, bs), reps)
+    plain_ms = time_ms(lambda: ref.mlp_forward(x, ws, bs), reps)
+    dev_ms = device_ms(lambda: mlp_forward_cuda(x, ws, bs),
+                       name="mlp_forward_kernel")
+    plain_dev_ms = device_ms(lambda: ref.mlp_forward(x, ws, bs))
+    pairs = sum(a * b for a, b in zip(PAPER_DIMS[:-1], PAPER_DIMS[1:]))
+    flops = 2.0 * B * pairs
+    nbytes = 4 * (B * (PAPER_DIMS[0] + PAPER_DIMS[-1]) + pairs
+                  + sum(PAPER_DIMS[1:]))
+    t_ops = flops / PEAK_FP32_S * 1e3
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    return {"shape": [B, *PAPER_DIMS], "ms": ms, "plain_ms": plain_ms,
+            "device_ms": dev_ms, "plain_device_ms": plain_dev_ms,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "gflops_s": flops / (ms * 1e-3) / 1e9}
 
 
 def descend_case(dev, G: int, R: int, S: int, D: int = 13,
@@ -817,6 +986,190 @@ def phase_service(dev, rounds: int = 4) -> dict:
             "solve_dag": sd, "stats": stats, "executor": ex_stats}
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the model server
+# ---------------------------------------------------------------------------
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def phase_modelserver(dev, n_workloads: int = MS_WORKLOADS,
+                      n_traces: int = MS_TRACES, hidden=PAPER_HIDDEN,
+                      shift_rows: int = SHIFT_ROWS,
+                      min_probes: int = MS_PROBES) -> dict:
+    """The modeling engine online, at the paper's surrogate width.
+
+    One ``ModelRegistry`` (``TrainerConfig(hidden=(128,)*4,
+    log_target=True)``, otherwise the defaults: dropout 0.05, 60 epochs)
+    holds ``n_workloads`` workloads of ``batch_suite()`` over the 12 Spark
+    knobs with ``n_traces`` traces each from ``generate_traces`` (ground
+    truth on the card, 8 % log-normal noise), plus one workload fit with the
+    GP backend (``gp_max_points`` 1024).  Each is retrained to v1 (gated
+    promotion; later MLP workloads warm-start from their nearest neighbour
+    and hedge with a cold fit), then served by one ``MOOService`` session
+    per workload (``create_workload_session``) run to ``min_probes``
+    probes.  Then ``shift_rows`` traces of another workload's surface are
+    streamed into the first workload: the drift watermark fires, the
+    registry trims to the new rows and retrains inline
+    (``retrain_on_drift``) to v2, and one more pass warm re-solves its
+    session."""
+    import torch
+
+    from repro_torch.core import Objective
+    from repro_torch.data.workloads import (
+        batch_problem,
+        batch_suite,
+        generate_traces,
+        spark_space,
+    )
+    from repro_torch.modelserver import ModelRegistry, TrainerConfig
+    from repro_torch.modelserver.trainer import gate_split, relative_error
+    from repro_torch.service import MOOService
+
+    suite = batch_suite()
+    knobs = tuple(spark_space())
+    objectives = (Objective("latency_s"), Objective("cost_usd"))
+    mlp_cfg = TrainerConfig(hidden=tuple(hidden), log_target=True)
+    gp_cfg = TrainerConfig(backend="gp", gp_max_points=1024,
+                           log_target=True)
+    reg = ModelRegistry(trainer=mlp_cfg, retrain_on_drift=True,
+                        trim_on_drift=shift_rows, device=dev)
+    events = []
+    reg.subscribe(lambda ev: events.append((time.perf_counter(), ev)))
+    t0 = time.perf_counter()
+    sigs, traces = [], {}
+    for i, w in enumerate(suite[:n_workloads + 1]):
+        sig = reg.register_workload(("batch", w.name), knobs, objectives,
+                                    name=w.name)
+        X, Y = generate_traces(batch_problem(w, device=dev), n_traces,
+                               seed=100 + i)
+        reg.observe_batch(sig, X, Y)
+        sigs.append(sig)
+        traces[sig] = (X, Y)
+    _sync(dev)
+    ingest_s = time.perf_counter() - t0
+    gp_sig = sigs[-1]
+    per = {}
+    for sig in sigs:
+        cfg = gp_cfg if sig == gp_sig else mlp_cfg
+        t1 = time.perf_counter()
+        rep = reg.retrain(sig, cfg)
+        _sync(dev)
+        fit_s = time.perf_counter() - t1
+        name = reg.info(sig)["name"]
+        if not (rep.improved and rep.version == 1):
+            fail(f"model server: {name} was not promoted to v1 "
+                 f"({rep.outcome.candidate_error} vs "
+                 f"{rep.outcome.previous_error})")
+        X, Y = traces[sig]
+        _, va = gate_split(len(X), cfg.val_frac, cfg.seed)
+        t1 = time.perf_counter()
+        err = relative_error(reg.snapshot(sig).models, X[va], Y[va])
+        _sync(dev)
+        gate_s = time.perf_counter() - t1
+        if abs(err - rep.outcome.candidate_error) > 1e-6:
+            fail(f"model server: {name} gate error {err} does not repeat "
+                 f"{rep.outcome.candidate_error}")
+        warm = rep.outcome.warm_started_from
+        per[name] = {"backend": cfg.backend, "fit_s": fit_s,
+                     "gate_s": gate_s, "gate_rows": int(len(va)),
+                     "gate_error": rep.outcome.candidate_error,
+                     "warm_start": (None if warm is None else "self"
+                                    if warm == "self" else "neighbour")}
+        log(f"model server: v1 {name}: {per[name]}")
+
+    svc = MOOService(use_kernel=True, device=dev)
+    t1 = time.perf_counter()
+    sids = {sig: svc.create_workload_session(reg, sig) for sig in sigs}
+    svc.run_until(min_probes=min_probes)
+    _sync(dev)
+    solve_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    gp_round = svc.step_sessions([sids[gp_sig]], origin=None)
+    _sync(dev)
+    gp_round_s = time.perf_counter() - t1
+    recommend_ms = []
+    for sig, sid in sids.items():
+        t1 = time.perf_counter()
+        rec = svc.recommend(sid)
+        recommend_ms.append((time.perf_counter() - t1) * 1e3)
+        if len(rec.config) != 12:
+            fail("model server: a recommendation does not set the 12 knobs")
+        sess = svc._sessions[sid]
+        check_frontier(sess.engine.finalize(sess.state), sess.problem,
+                       f"model server {reg.info(sig)['name']} v1")
+    log(f"model server: {len(sids)} sessions to {min_probes} probes in "
+        f"{solve_s:.2f} s; GP session round {gp_round['timing']}")
+
+    # drift: stream the surface of the workload (among the next 20) the
+    # target's v1 model predicts worst
+    target = sigs[0]
+    model = reg.snapshot(target).models
+    best = None
+    for j, w in enumerate(suite[n_workloads + 1:n_workloads + 21]):
+        Xs, Ys = generate_traces(batch_problem(w, device=dev), shift_rows,
+                                 seed=500 + j)
+        err = relative_error(model, Xs, Ys)
+        if best is None or err > best[0]:
+            best = (err, w.name, Xs, Ys)
+    shift_err, shift_name, Xs, Ys = best
+    n_events = len(events)
+    t_obs = time.perf_counter()
+    evs = reg.observe_batch(target, Xs, Ys)
+    _sync(dev)
+    observe_s = time.perf_counter() - t_obs
+    kinds = [e.kind for e in evs]
+    if kinds != ["drift", "version"]:
+        fail(f"model server: drift stream gave events {kinds}, expected "
+             f"one drift, then the inline retrain's version")
+    if [e.kind for _, e in events[n_events:]] != kinds:
+        fail("model server: subscribers saw other events than observe "
+             "returned")
+    t_drift = events[n_events][0]
+    info = reg.info(target)
+    if info["version"] != 2 or info["stale"]:
+        fail(f"model server: after the inline retrain {info}")
+    st = svc.stats()
+    if st["stale_sessions"] != 1 or st["frontier_invalidations"] != 1:
+        fail(f"model server: invalidation {st}")
+    svc.run_until(min_probes=min_probes)
+    _sync(dev)
+    t_fresh = time.perf_counter()
+    st = svc.stats()
+    if st["warm_resolves"] < 1 or st["stale_sessions"] != 0:
+        fail(f"model server: no warm re-solve {st}")
+    sess = svc._sessions[sids[target]]
+    if sess.spec.model_id != ("modelserver", target, 2):
+        fail(f"model server: the session serves {sess.spec.model_id}")
+    check_frontier(sess.engine.finalize(sess.state), sess.problem,
+                   "model server shifted workload v2")
+    drift = {"source": shift_name, "v1_error_on_source": shift_err,
+             "rows": shift_rows, "observe_and_retrain_s": observe_s,
+             "v2_gate_error": evs[1].detail["val_error"],
+             "v2_warm_start": evs[1].detail["warm_started_from"],
+             "drift_to_fresh_frontier_s": t_fresh - t_drift,
+             "probes_after": svc.session_info(sids[target]).probes}
+    log(f"model server: drift {drift}")
+    for obj in (reg, svc.executor, *(svc._sessions[s].state.store
+                                     for s in sids.values())):
+        if obj.device.type != torch.device(dev).type:
+            fail(f"model server: {type(obj).__name__} on {obj.device}")
+    ex = svc.executor.stats()
+    log(f"model server executor stats: {ex}")
+    return {"workloads": per, "ingest_s": ingest_s,
+            "sessions_solve_s": solve_s,
+            "gp_round_s": gp_round_s,
+            "gp_dispatch_s": gp_round["timing"]["solve_s"],
+            "recommend_ms": recommend_ms, "drift": drift,
+            "stats": svc.stats(), "executor": ex,
+            "gate_rows": per[reg.info(sigs[0])["name"]]["gate_rows"]}
+
+
 def main() -> int:
     """Run the phases; exit code 0 only when every check held."""
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -848,6 +1201,7 @@ def main() -> int:
     d = phase_descend(dev)
     log(f"descend timing: {d}")
     c_err = phase_compose(dev)
+    m_chk = phase_mlp(dev)
     mark("kernels")
 
     # phase 3: the main path, one task (launch counts of this run only)
@@ -875,11 +1229,29 @@ def main() -> int:
     log(f"compose timing path shape: {c_main}")
     log(f"compose timing 4096x4096: {c_big}")
     mark("service")
+    # phase 6: the model server (counted separately)
+    platform.reset_launches()
+    ms = phase_modelserver(dev)
+    ms_launches = platform.launch_counts()
+    ms_plain = platform.plain_on_cuda_counts()
+    log(f"model-server-path launches: {ms_launches}; plain versions on the "
+        f"card: {ms_plain}")
+    if ms_launches.get("mlp_forward", 0) <= 0:
+        fail("kernel mlp_forward was not launched on the model-server path")
+    if ms_plain.get("mlp_forward", 0) != 0:
+        fail(f"the plain MLP forward ran {ms_plain['mlp_forward']} times on "
+             f"a CUDA tensor on the model-server path")
+    m_gate = mlp_timing(dev, ms["gate_rows"])
+    m_big = mlp_timing(dev, 4096)
+    log(f"mlp_forward timing gate split: {m_gate}")
+    log(f"mlp_forward timing 4096 rows: {m_big}")
+    mark("modelserver")
 
-    # phase 6: assertions
+    # phase 7: assertions
     for label, st in (("single task", single["stats"]),
                       ("tenants", tenants["stats"]),
-                      ("service", service["executor"])):
+                      ("service", service["executor"]),
+                      ("model server", ms["executor"])):
         if st["fused_dispatches"] <= 0:
             fail(f"{label}: no fused dispatch")
         if st["fused_fallbacks"] != 0:
@@ -919,6 +1291,13 @@ def main() -> int:
          "max_abs_err": c_err, "ms": c_main["ms"],
          "plain_ms": c_main["plain_ms"], "bound_ms": c_main["bound_ms"],
          "bound_by": c_main["bound_by"], "library_ms": None},
+        {"name": "mlp_forward", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/mogd_mlp.cu",
+         "replaces": "src/repro/kernels/mogd_mlp.py:33",
+         "launches": ms_launches["mlp_forward"],
+         "max_abs_err": m_chk["max_abs_err"], "ms": m_gate["ms"],
+         "plain_ms": m_gate["plain_ms"], "bound_ms": m_gate["bound_ms"],
+         "bound_by": m_gate["bound_by"], "library_ms": None},
     ]
     summary = {"single_task": {k: v for k, v in single.items()
                                if k != "stats"},
@@ -926,11 +1305,16 @@ def main() -> int:
                "service": {k: v for k, v in service.items()
                            if k not in ("stats", "executor")},
                "service_stats": service["stats"],
+               "modelserver": {k: v for k, v in ms.items()
+                               if k not in ("stats", "executor")},
+               "modelserver_stats": ms["stats"],
                "launches": {"single_task": launches,
                             "tenants": tenant_launches,
-                            "service": service_launches},
+                            "service": service_launches,
+                            "modelserver": ms_launches},
                "pareto_4096": p_big, "descend": d,
                "compose_path": c_main, "compose_4096": c_big,
+               "mlp_check": m_chk, "mlp_gate": m_gate, "mlp_4096": m_big,
                "phase_s": phase_s}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
@@ -946,6 +1330,18 @@ def main() -> int:
                              for name, dag in service["dags"].items()},
         "solve_dag_s": service["solve_dag"]["seconds"],
         "solve_dag_dispatches": service["solve_dag"]["dispatches"]}}),
+        flush=True)
+    print(json.dumps({"modelserver": {
+        "fit_s": {n: w["fit_s"] for n, w in ms["workloads"].items()},
+        "gate_s": {n: w["gate_s"] for n, w in ms["workloads"].items()},
+        "gate_error": {n: w["gate_error"]
+                       for n, w in ms["workloads"].items()},
+        "drift_to_fresh_frontier_s":
+            ms["drift"]["drift_to_fresh_frontier_s"],
+        "recommend_ms": ms["recommend_ms"],
+        "gp_dispatch_s": ms["gp_dispatch_s"],
+        "mlp_forward_launches": ms_launches["mlp_forward"],
+        "mlp_forward_ms": {"gate_rows": m_gate["ms"], "4096": m_big["ms"]}}}),
         flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

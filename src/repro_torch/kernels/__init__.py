@@ -6,6 +6,8 @@ plain PyTorch version (the CPU tier and the kernel's oracle on the card).
                     (csrc/mogd_descend.cu)
     compose         all-pairs frontier composition for DAG jobs
                     (csrc/compose.cu)
+    mogd_mlp        fused surrogate-MLP forward behind the regressors and
+                    the trainer (csrc/mogd_mlp.cu)
 
 ``platform`` holds the device policy, ``native`` builds and loads the CUDA
 library, ``ref`` holds the autodiff oracles and ``ops`` the public wrappers.

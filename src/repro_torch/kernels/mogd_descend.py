@@ -118,14 +118,17 @@ def fold_affine(plan: DescendPlan, params):
     ``z = (x - xm)/xs`` folds into layer 0 (``W0' = W0/xs``,
     ``b0' = b0 - (xm/xs) @ W0``); ``y = raw*ys + ym`` folds into the last
     layer.  Works batched (leading G axis) or unbatched; returns a tuple over
-    objectives of ``(ws, bs)`` plain ReLU-MLP weights."""
+    objectives of ``(ws, bs)`` plain ReLU-MLP weights.  The target moments
+    may carry a trailing axis of size 1 (``fit_mlp`` stores them as
+    ``(1,)``, as the reference does); it is dropped here."""
     out = []
     for j in range(plan.k):
         p = params[j]
         ws = [layer["w"] for layer in p["layers"]]
         bs = [layer["b"] for layer in p["layers"]]
         xm, xs = p["x_mean"], p["x_std"]
-        ym, ys = p["y_mean"], p["y_std"]
+        lead = xm.shape[:-1]
+        ym, ys = p["y_mean"].reshape(lead), p["y_std"].reshape(lead)
         bs[0] = bs[0] - torch.einsum("...d,...dh->...h", xm / xs, ws[0])
         ws[0] = ws[0] / xs[..., :, None]
         ws[-1] = ws[-1] * ys[..., None, None]

@@ -22,7 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
-SOURCES = ("pareto_filter.cu", "mogd_descend.cu", "compose.cu")
+SOURCES = ("pareto_filter.cu", "mogd_descend.cu", "compose.cu", "mogd_mlp.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # No --use_fast_math: expf/cosf/powf/sqrtf and division stay IEEE, and
 # -fmad=false keeps elementwise a*b+c rounded twice, as PyTorch's separate
@@ -133,6 +133,10 @@ def library() -> ctypes.CDLL:
             lib.pairwise_compose.argtypes = [
                 _VP, _VP, _I, _I, _I, ctypes.c_uint, _VP, _VP]
             lib.pairwise_compose.restype = _I
+            lib.mlp_forward.argtypes = [
+                _VP, _I, _I, _VP, _VP, _VP,  # x, B, layers, dims, ws, bs
+                _I, _I, _I, _I, _VP, _VP]  # tile, stride, chunk, smem, out
+            lib.mlp_forward.restype = _I
             lib.mogd_plan_bytes.argtypes = []
             lib.mogd_plan_bytes.restype = _I
             lib.repro_cuda_error_string.argtypes = [_I]

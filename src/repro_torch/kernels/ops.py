@@ -9,7 +9,14 @@ from __future__ import annotations
 
 import torch
 
+from .mogd_mlp import mlp_forward_fused
 from .pareto_filter import cross_dominator_counts, pareto_counts_blocked
+
+
+def mlp_forward(x, ws, bs) -> torch.Tensor:
+    """Fused surrogate-MLP forward; drop-in for ``ref.mlp_forward`` and
+    differentiable (``kernels.mogd_mlp.MLPForwardFused``)."""
+    return mlp_forward_fused(x, ws, bs)
 
 
 def _f32(F) -> torch.Tensor:

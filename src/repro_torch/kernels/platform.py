@@ -15,7 +15,10 @@
   plain versions on the card compute in full fp32 like the kernels.
 * **Launch counts.** Every wrapper adds one to :data:`LAUNCHES` under its
   kernel's name where it launches the kernel, and nowhere else, so a run
-  can show that its main path went through the kernels.
+  can show that its main path went through the kernels.  A plain version
+  that a wrapper routes to adds one to :data:`PLAIN_ON_CUDA` when it is
+  handed a CUDA tensor, so a run can also show that its path never took
+  the plain version on the card.
 """
 
 from __future__ import annotations
@@ -30,6 +33,8 @@ HOPPER = (9, 0)
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES: collections.Counter = collections.Counter()
+# plain-version name -> calls on a CUDA tensor since the last reset
+PLAIN_ON_CUDA: collections.Counter = collections.Counter()
 
 
 def resolve_device(device=None) -> torch.device:
@@ -67,10 +72,17 @@ def use_kernel(t: torch.Tensor) -> bool:
 
 
 def reset_launches() -> None:
-    """Set every kernel's launch count to 0."""
+    """Set every kernel's launch count, and every plain version's count of
+    calls on the card, to 0."""
     LAUNCHES.clear()
+    PLAIN_ON_CUDA.clear()
 
 
 def launch_counts() -> dict:
     """A copy of the launch counts, by kernel name."""
     return dict(LAUNCHES)
+
+
+def plain_on_cuda_counts() -> dict:
+    """A copy of the plain versions' call counts on CUDA tensors."""
+    return dict(PLAIN_ON_CUDA)

@@ -13,10 +13,16 @@ import math
 import torch
 from torch.func import grad, vmap
 
+from .platform import PLAIN_ON_CUDA
+
 
 def mlp_forward(x, ws, bs):
     """x: (B, D); ws: list of (Din, Dout); bs: list of (Dout,).  ReLU MLP
-    with a linear head (the paper's 4x128 latency model)."""
+    with a linear head (the paper's 4x128 latency model).  The plain
+    version of ``csrc/mogd_mlp.cu``: a call on a CUDA tensor is counted in
+    ``platform.PLAIN_ON_CUDA``."""
+    if x.device.type == "cuda":
+        PLAIN_ON_CUDA["mlp_forward"] += 1
     h = x
     for w, b in zip(ws[:-1], bs[:-1]):
         h = torch.relu(h @ w + b)

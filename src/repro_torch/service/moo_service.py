@@ -30,7 +30,10 @@ All of a service's work runs on one device (``device=None`` means
 ``cuda``): its executor's dispatches, its sessions' frontier stores and
 its DAG compositions.  Multi-stage jobs (:meth:`create_dag_session`)
 compose their stages' frontiers through the pairwise-compose kernel when
-``use_kernel`` is set.
+``use_kernel`` is set.  Sessions over a model registry's workloads
+(:meth:`create_workload_session`, or a DAG's ``workloads``) follow the
+registry: a model version bump or a drift event invalidates them, and the
+next probe pass warm re-solves them under the new model (DESIGN.md §9).
 """
 
 from __future__ import annotations
@@ -82,6 +85,8 @@ class SessionInfo:
     uncertain_fraction: float
     exhausted: bool  # queue empty — frontier is final
     elapsed_s: float
+    workload: str | None = None  # registry workload sig being watched
+    stale: bool = False  # invalidated; warm re-solve pending
 
 
 @dataclasses.dataclass
@@ -116,6 +121,13 @@ class _Session:
     solver_key: tuple  # (signature, mogd) entry in the service solver cache
     spec: TaskSpec
     state: PFState | None = None
+    # model-server subscription (None for plain sessions): on a version
+    # bump or drift event for ``workload`` the session is marked stale and
+    # warm re-solved from ``registry.task_spec(workload)`` at the next
+    # probe/step — never on the recommend path.
+    registry: object | None = None
+    workload: str | None = None
+    stale: bool = False
     # budget-plane telemetry (DESIGN.md §15): EMA of hypervolume delta
     # per probe across absorbs, and rounds since the policy last gave
     # this session a non-zero allocation (the staleness feature)
@@ -177,6 +189,9 @@ class MOOService:
         self._problems: dict[tuple, MOOProblem] = {}
         self._ids = itertools.count()
         self._lock = threading.RLock()
+        # model-server subscriptions: workload sig -> watching session ids
+        self._watch: dict[str, set[str]] = {}
+        self._registries: list = []
         # typed service counters (DESIGN.md §14) — stats() is a view
         # over the shared registry; the int properties below keep the
         # attribute surface working
@@ -190,6 +205,10 @@ class MOOService:
             "service.coalesced_batches", self._labels)
         self._c_coalesced_probes = m.counter(
             "service.coalesced_probes", self._labels)
+        self._c_frontier_invalidations = m.counter(
+            "service.frontier_invalidations", self._labels)
+        self._c_warm_resolves = m.counter(
+            "service.warm_resolves", self._labels)
         # in-flight telemetry (DESIGN.md §12): probe rows currently being
         # solved with the service lock RELEASED — a concurrent stats()
         # call observes them directly.
@@ -239,6 +258,16 @@ class MOOService:
     def coalesced_probes(self) -> int:
         """Probe rows solved by coalesced dispatches."""
         return int(self._c_coalesced_probes.value)
+
+    @property
+    def frontier_invalidations(self) -> int:
+        """Sessions invalidated by registry events (or a missed one)."""
+        return int(self._c_frontier_invalidations.value)
+
+    @property
+    def warm_resolves(self) -> int:
+        """Stale sessions rebuilt under a newer model version."""
+        return int(self._c_warm_resolves.value)
 
     @property
     def in_flight_probes(self) -> int:
@@ -332,6 +361,8 @@ class MOOService:
         grid_l: int | None = None,
         batch_rects: int | None = None,
         target: int = 0,
+        registry=None,
+        workloads: dict | None = None,
     ) -> str:
         """Register a multi-stage job: one child session per *distinct*
         stage signature (a job repeating a recurring sub-task tunes it
@@ -339,11 +370,25 @@ class MOOService:
         ``step_all``/``run_until`` batch a DAG's stage probes — and any
         other tenant's equal-structure probes — into shared MOGD
         dispatches.  Compose/recommend with :meth:`dag_frontier` /
-        :meth:`recommend_dag`."""
+        :meth:`recommend_dag`.
+
+        ``workloads`` maps stage names to ModelRegistry workload
+        signatures: those stages' child sessions subscribe to ``registry``
+        and are invalidated (then warm re-solved) on model version bumps
+        or drift, exactly like :meth:`create_workload_session` sessions —
+        a model update to one recurring sub-task refreshes every DAG that
+        contains it."""
         if not isinstance(dag, JobDAG):
             raise TypeError(
                 f"create_dag_session expects a JobDAG, got "
                 f"{type(dag).__name__}")
+        workloads = workloads or {}
+        if workloads and registry is None:
+            raise ValueError("stage workloads require a registry")
+        unknown = set(workloads) - set(dag.stage_names)
+        if unknown:
+            raise ValueError(
+                f"workloads name unknown stages {sorted(unknown)}")
         with self._lock:
             by_sig: dict[str, str] = {}
             stage_sids: dict[str, str] = {}
@@ -356,6 +401,8 @@ class MOOService:
                             grid_l=grid_l, batch_rects=batch_rects,
                             target=target)
                     stage_sids[stage.name] = by_sig[sig]
+                for name, wsig in workloads.items():
+                    self.watch_workload(stage_sids[name], registry, wsig)
             except Exception:
                 # a failing stage must not leak the siblings already
                 # registered — the caller has no dag_id to close them with
@@ -475,7 +522,177 @@ class MOOService:
         # solvers stay warm for the next submission (bounded by
         # _evict_cold_tasks)
         with self._lock:
-            self._sessions.pop(session_id, None)
+            sess = self._sessions.pop(session_id, None)
+            if sess is not None:
+                self._unwatch(sess)
+
+    def _unwatch(self, sess: _Session) -> None:
+        """Drop a session from its workload's watch set (lock held)."""
+        if sess.workload is None:
+            return
+        watchers = self._watch.get(sess.workload)
+        if watchers is not None:
+            watchers.discard(sess.session_id)
+            if not watchers:
+                self._watch.pop(sess.workload, None)
+
+    # ------------------------------------------------------------------
+    # Model-server integration (DESIGN.md §9): sessions subscribe to a
+    # ModelRegistry; a version bump or drift event invalidates the
+    # signature-keyed caches of every watching session and schedules a
+    # warm re-solve (seeded from the prior frontier) at the next probe —
+    # never on the recommend path, which keeps serving the last frontier.
+    # ------------------------------------------------------------------
+    def attach_registry(self, registry) -> None:
+        """Subscribe this service to a ModelRegistry's invalidation
+        events (idempotent).  The registry must serve its models on the
+        service's device."""
+        if registry.device != self.device:
+            raise ValueError(f"registry serves on {registry.device}, "
+                             f"service runs on {self.device}")
+        with self._lock:
+            if registry in self._registries:
+                return
+            self._registries.append(registry)
+        registry.subscribe(self._on_model_event)
+
+    def create_workload_session(
+        self,
+        registry,
+        workload: str,
+        preference: Preference | None = None,
+        mode: str | None = None,
+        mogd: MOGDConfig | None = None,
+        grid_l: int | None = None,
+        batch_rects: int | None = None,
+        target: int = 0,
+    ) -> str:
+        """Register a tuning session whose objective model is served by a
+        :class:`~repro_torch.modelserver.ModelRegistry` workload.  The session
+        tracks the registry: model version bumps and drift events
+        invalidate its frontier and trigger a warm incremental re-solve."""
+        self.attach_registry(registry)
+        spec = registry.task_spec(workload, preference=preference)
+        with self._lock:
+            sid = self.create_session(spec, mode=mode, mogd=mogd,
+                                      grid_l=grid_l, batch_rects=batch_rects,
+                                      target=target)
+            sess = self._sessions[sid]
+            sess.registry = registry
+            sess.workload = workload
+            self._watch.setdefault(workload, set()).add(sid)
+            self._recheck_watched(sess)
+            return sid
+
+    def watch_workload(self, session_id: str, registry,
+                       workload: str) -> None:
+        """Subscribe an existing session (e.g. a DAG stage child) to a
+        registry workload's invalidation events."""
+        self.attach_registry(registry)
+        with self._lock:
+            sess = self._get(session_id)
+            if sess.workload != workload:
+                self._unwatch(sess)  # rebinding must not leave the old
+                # workload's events able to poison this session
+            sess.registry = registry
+            sess.workload = workload
+            self._watch.setdefault(workload, set()).add(session_id)
+            self._recheck_watched(sess)
+
+    def _recheck_watched(self, sess: _Session) -> None:
+        """Close the subscribe->watch race: a version promoted between
+        fetching the spec and registering the watch set emitted its event
+        before this session was listening — compare against the
+        registry's CURRENT spec and invalidate if we already missed one.
+        Under the service lock."""
+        current = (self._registry_spec_for(sess).signature(),)
+        if current != sess.signature and not sess.stale:
+            sess.stale = True
+            self._c_frontier_invalidations.inc()
+            self._problems.pop(sess.signature, None)
+            self._solvers.pop(sess.solver_key, None)
+
+    def _registry_spec_for(self, sess: _Session) -> TaskSpec:
+        """The spec a watched session would rebuild against right now:
+        the registry's active snapshot, with the session's own objective
+        declarations (bounds/alphas) and preference preserved."""
+        spec = sess.registry.task_spec(
+            sess.workload, preference=sess.spec.preference)
+        if spec.objectives != sess.spec.objectives:
+            # the session's author may have declared tighter bounds /
+            # alphas than the registry record (e.g. a DAG stage with a
+            # latency cap): a model refresh must not drop them
+            try:
+                spec = dataclasses.replace(
+                    spec, objectives=sess.spec.objectives)
+            except ValueError:
+                # the new backend can't honor the alphas (no predictive
+                # stds): keep the alpha-independent declarations — the
+                # author's HARD bounds must survive a model refresh
+                warnings.warn(
+                    f"session {sess.session_id}: model refresh dropped "
+                    f"uncertainty alphas (new snapshot has no predictive "
+                    f"stds); hard bounds preserved", RuntimeWarning,
+                    stacklevel=2)
+                stripped = tuple(
+                    dataclasses.replace(o, alpha=0.0)
+                    for o in sess.spec.objectives)
+                spec = dataclasses.replace(spec, objectives=stripped)
+        return spec
+
+    def _on_model_event(self, event) -> None:
+        """Registry callback: invalidate every watching session."""
+        with self._lock:
+            for sid in self._watch.get(event.workload, ()):
+                sess = self._sessions.get(sid)
+                if sess is None or sess.stale:
+                    continue
+                sess.stale = True
+                self._c_frontier_invalidations.inc()
+                # drop the signature-keyed caches for the outdated model:
+                # the next compile under this signature must not resurrect
+                # a frontier/solver built against stale predictions
+                self._problems.pop(sess.signature, None)
+                self._solvers.pop(sess.solver_key, None)
+
+    def _refresh_stale_locked(self) -> None:
+        """Warm re-solve every stale session whose registry now serves a
+        different model version.  Runs on the probe/step path (under the
+        service lock), so recommend() latency never pays for it; the old
+        frontier keeps serving until the rebuilt one overtakes it."""
+        for sess in self._sessions.values():
+            if not sess.stale or sess.registry is None:
+                continue
+            spec = self._registry_spec_for(sess)
+            sig = (spec.signature(),)
+            if sig == sess.signature:
+                # drift flagged but no promoted retrain yet: nothing newer
+                # to rebuild against — stay stale, keep serving
+                continue
+            old_X = None
+            if sess.state is not None and sess.state.store.n_points:
+                _, old_X = sess.state.store.frontier()
+            problem = self._compile_cached(spec, sig)
+            mogd = sess.solver_key[1]
+            engine = self._build_engine(
+                problem, sig, mogd, mode=sess.engine.mode,
+                grid_l=sess.engine.grid_l,
+                batch_rects=sess.engine.batch_rects,
+                target=sess.engine.target)
+            state = None
+            if old_X is not None and len(old_X):
+                # incremental re-solve: the prior frontier becomes the
+                # initial rectangle set of the new PF state
+                state = engine.seed(old_X)
+            sess.problem = problem
+            sess.signature = sig
+            sess.solver_key = (sig, mogd)
+            sess.spec = spec
+            sess.engine = engine
+            sess.state = state
+            sess.stale = False
+            self._c_warm_resolves.inc()
+            self._evict_cold_tasks()
 
     def __len__(self) -> int:
         """Number of open sessions."""
@@ -493,6 +710,7 @@ class MOOService:
         """Advance one session by ``n_probes`` additional probes (resuming
         its PFState) and return the refreshed frontier."""
         with self._lock:
+            self._refresh_stale_locked()
             sess = self._get(session_id)
             res = sess.engine.run(n_probes=n_probes, state=sess.state,
                                   deadline_s=deadline_s)
@@ -671,11 +889,12 @@ class MOOService:
                "per_session": {}, "exhausted": []}
         t_prep0 = time.perf_counter()
         with self._lock:
+            self._refresh_stale_locked()
             groups: dict[tuple, list[_Session]] = {}
             singles: list[_Session] = []
             for sess in sessions:
                 if self._sessions.get(sess.session_id) is not sess:
-                    continue  # closed since the snapshot
+                    continue  # closed (or warm-replaced) since the snapshot
                 if sess.state is None:
                     sess.state = sess.engine.initialize()
                 if not len(sess.state.queue):
@@ -825,6 +1044,10 @@ class MOOService:
         """Drive ``step_all`` until every active session has spent at least
         ``min_probes`` probes (or its queue is exhausted)."""
         out = {"rounds": 0, "batches": 0, "probes": 0}
+        with self._lock:
+            # rebuild invalidated sessions first: a freshly re-solved state
+            # restarts its probe budget, so it must count as pending below
+            self._refresh_stale_locked()
         for _ in range(max_rounds):
             with self._lock:
                 pending = [
@@ -917,6 +1140,8 @@ class MOOService:
                     1.0 if st is None else st.queue.uncertain_fraction),
                 exhausted=st is not None and not len(st.queue),
                 elapsed_s=0.0 if st is None else st.elapsed,
+                workload=sess.workload,
+                stale=sess.stale,
             )
 
     def stats(self) -> dict:
@@ -937,6 +1162,11 @@ class MOOService:
                 "executor_structures": self.executor.structures_compiled,
                 "executor_compiles": self.executor.total_compiles,
                 "executor_dispatches": self.executor.dispatches,
+                "watched_workloads": len(self._watch),
+                "stale_sessions": sum(
+                    1 for s in self._sessions.values() if s.stale),
+                "frontier_invalidations": self.frontier_invalidations,
+                "warm_resolves": self.warm_resolves,
                 "total_probes": sum(
                     s.state.probes for s in self._sessions.values()
                     if s.state is not None),

@@ -50,7 +50,11 @@ def test_every_module_is_covered():
                  "repro_torch.data.workloads", "repro_torch.alloc.features",
                  "repro_torch.alloc.policy", "repro_torch.core.dag",
                  "repro_torch.kernels.compose",
-                 "repro_torch.service.moo_service"):
+                 "repro_torch.service.moo_service",
+                 "repro_torch.kernels.mogd_mlp", "repro_torch.models.gp",
+                 "repro_torch.models.train", "repro_torch.modelserver.drift",
+                 "repro_torch.modelserver.trainer",
+                 "repro_torch.modelserver.registry"):
         assert want in mods
 
 

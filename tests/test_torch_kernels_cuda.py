@@ -15,7 +15,10 @@ Tolerances: dominator counts are integers and compared exactly; composed
 frontiers (fp32 adds and maxima, correctly rounded) bit for bit, with NaN
 where the plain version has NaN; the narrow
 descent (width 16, 25 steps) at ``atol=2e-5``, the reference's own
-tolerance (``tests/test_mogd_descend.py``).
+tolerance (``tests/test_mogd_descend.py``); the fused MLP forward at 2e-5
+(3e-5 at the paper's shape) and its gradients at 1e-4, the tolerances of
+``tests/test_kernels.py::TestMogdMLP`` and
+``tests/test_mogd_descend.py::TestFusedMLPVJP``.
 """
 
 from __future__ import annotations
@@ -29,11 +32,13 @@ from repro_torch.kernels.compose import (
     pairwise_compose_blocked,
     pairwise_compose_plain,
 )
+from repro_torch.kernels import platform, ref
 from repro_torch.kernels.mogd_descend import (
     DescendPlan,
     descend_batch,
     descend_batch_plain,
 )
+from repro_torch.kernels.mogd_mlp import mlp_forward_cuda, mlp_forward_fused
 from repro_torch.kernels.pareto_filter import (
     cross_dominator_counts,
     cross_dominator_counts_plain,
@@ -148,3 +153,71 @@ class TestKernelsOnCard:
             want = pairwise_compose_plain(FA, FB, add)
             assert got.shape == (n * m, k)
             assert _same_bits(got, want)
+
+
+def _mlp_case(dims, B, seed, dev, w_scale=0.1, b_scale=0.05):
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+    ws = [f32(rng.normal(size=(dims[i], dims[i + 1])) * w_scale)
+          for i in range(len(dims) - 1)]
+    bs = [f32(rng.normal(size=(dims[i + 1],)) * b_scale)
+          for i in range(len(dims) - 1)]
+    return f32(rng.normal(size=(B, dims[0]))), ws, bs
+
+
+@pytest.mark.cuda
+class TestMLPForwardOnCard:
+    @pytest.mark.parametrize("B", [1, 7, 256, 300, 4096])
+    @pytest.mark.parametrize("depth", [1, 2, 4])
+    def test_equals_plain(self, cuda_device, B, depth):
+        x, ws, bs = _mlp_case([24] + [128] * depth + [1], B, B + depth,
+                              cuda_device)
+        before = platform.launch_counts().get("mlp_forward", 0)
+        got = mlp_forward_cuda(x, ws, bs)
+        torch.cuda.synchronize()
+        assert platform.launch_counts()["mlp_forward"] == before + 1
+        np.testing.assert_allclose(got.cpu().numpy(),
+                                   ref.mlp_forward(x, ws, bs).cpu().numpy(),
+                                   rtol=2e-5, atol=2e-5)
+
+    @pytest.mark.parametrize("dims", [(13, 128, 128, 128, 128, 1),
+                                      (3, 16, 1), (13, 24, 24, 1),
+                                      (5, 40, 72, 16, 128, 2)])
+    def test_widths_and_paper_shape(self, cuda_device, dims):
+        x, ws, bs = _mlp_case(dims, 1024, 7, cuda_device, 0.2, 0.1)
+        np.testing.assert_allclose(
+            mlp_forward_cuda(x, ws, bs).cpu().numpy(),
+            ref.mlp_forward(x, ws, bs).cpu().numpy(), rtol=3e-5, atol=3e-5)
+
+    @pytest.mark.parametrize("B", [5, 256, 300, 4096])
+    def test_gradients_equal_autograd_through_plain(self, cuda_device, B):
+        x, ws, bs = _mlp_case([6, 32, 32, 1], B, 2, cuda_device, 0.3, 0.1)
+        got = [t.clone().requires_grad_() for t in (x, *ws, *bs)]
+        want = [t.clone().requires_grad_() for t in (x, *ws, *bs)]
+        (mlp_forward_fused(got[0], got[1:4], got[4:]) ** 2).sum().backward()
+        (ref.mlp_forward(want[0], want[1:4], want[4:]) ** 2).sum().backward()
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.grad.cpu().numpy(),
+                                       w.grad.cpu().numpy(), rtol=1e-4,
+                                       atol=1e-4)
+
+    def test_vmap_of_grad_reaches_the_kernel(self, cuda_device):
+        from torch.func import grad, vmap
+
+        x, ws, bs = _mlp_case([13, 64, 64, 1], 48, 4, cuda_device, 0.3, 0.1)
+        before = platform.launch_counts().get("mlp_forward", 0)
+        got = vmap(grad(lambda r: mlp_forward_fused(r[None], ws, bs)[0, 0]))(x)
+        assert platform.launch_counts()["mlp_forward"] > before
+        want = vmap(grad(lambda r: ref.mlp_forward(r[None], ws, bs)[0, 0]))(x)
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-4)
+
+    def test_bad_inputs_raise(self, cuda_device):
+        x, ws, bs = _mlp_case([4, 8, 1], 3, 0, cuda_device)
+        with pytest.raises(ValueError, match="float32"):
+            mlp_forward_cuda(x.double(), ws, bs)
+        with pytest.raises(ValueError, match="w1"):
+            mlp_forward_cuda(x, [ws[0], ws[0]], bs)
+        with pytest.raises(ValueError, match="on cpu"):
+            mlp_forward_cuda(x, [ws[0].cpu(), ws[1]], bs)
+        assert mlp_forward_cuda(x[:0], ws, bs).shape == (0, 1)

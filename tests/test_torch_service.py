@@ -203,17 +203,28 @@ class TestServiceAgainstReference:
         with pytest.raises(TypeError):
             MOOService(device=CPU, **kw)
 
-    @pytest.mark.parametrize("kw", [dict(registry=None),
-                                    dict(workloads={})])
+    @pytest.mark.parametrize("kw", [
+        dict(workloads={"extract": "w"}),
+        dict(registry=object(), workloads={"nope": "w"})])
     def test_dag_session_model_server_arguments_are_refused(self, kw):
+        """The model-server arguments are accepted since the model server
+        was ported; stage workloads without a registry, or naming a stage
+        the job does not have, are refused as in the reference."""
+        match = "unknown stages" if "registry" in kw else "registry"
         svc = MOOService(device=CPU)
-        with pytest.raises(TypeError):
+        with pytest.raises(ValueError, match=match):
             svc.create_dag_session(_etl_job(P), **kw)
+        assert len(svc) == 0
 
     def test_later_slices_methods_are_absent(self):
-        for name in ("attach_registry", "create_workload_session",
-                     "watch_workload"):
+        """The vault's surface waits for the persistence plane."""
+        from repro_torch.modelserver import ModelRegistry
+
+        for name in ("vault_restores", "vault_seeds", "vault_snapshots",
+                     "vault_tombstones"):
             assert not hasattr(MOOService, name)
+        for name in ("persist_workload", "rehydrate"):
+            assert not hasattr(ModelRegistry, name)
 
 
 # ---------------------------------------------------------------------------
