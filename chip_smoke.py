@@ -31,15 +31,31 @@ Phases (any failure exits non-zero; nothing is caught and turned into 0):
    ``MOOService``, then traces from another workload's surface streamed into
    one workload until drift fires, the inline retrain to v2 and the warm
    re-solve of its session.
-7. Assertions: fused dispatches, no fallbacks, every kernel launched on its
+7. LM serving at full width and depth, weights random from a seed:
+   ``rwkv6_wkv`` (RWKV-6 3B's 40 heads of 64: a 512-token prefill, a
+   decode step from a nonzero state, 37 steps) and ``flash_attention``
+   (Qwen3-4B's 32/8 heads of 128, S = 16, 37, 512, 4096, bf16 and fp32,
+   one non-causal case) against their plain versions and timed (SDPA
+   timed beside flash as a yardstick only); then for ``rwkv6-3b`` (32
+   layers) and ``qwen3-4b`` (36 layers) in turn: ``init_params`` on the
+   card; in fp32 compute, 16 decode steps from an empty cache and one
+   decode step from a 16-token prefill's cache against the full forward;
+   then ``ServeEngine`` in bf16 serving 8 requests over 4 slots (prompts
+   of 16-512 tokens, 32 new tokens each, greedy), with tokens/s,
+   per-token decode and prefill times.  The launch counts are set to 0
+   just before ``ServeEngine.run`` and read just after it: each kernel
+   must have launched exactly once per mixer layer of every prefill (and,
+   for WKV, every decode step) the engine made, and no plain WKV or
+   attention may have run on a CUDA tensor.
+8. Assertions: fused dispatches, no fallbacks, every kernel launched on its
    path, no JAX or ``repro`` module loaded, everything on ``cuda``.
 
 Phase 2 also holds ``pairwise_compose`` to its plain version bit for bit,
 and ``mlp_forward`` (the fused surrogate forward), its gradients and a
 ``vmap(grad)`` through ``MLPRegressor`` to theirs.
 
-The last two lines of standard output are the kernels' JSON record and the
-device JSON line.  Without a CUDA device, or outside the repository, the
+Standard output ends with the service, model-server and LM-serving summary
+lines, the kernels' JSON record (six kernels) and the device JSON line.  Without a CUDA device, or outside the repository, the
 script exits non-zero and prints no result.
 """
 
@@ -75,6 +91,22 @@ MS_WORKLOADS = 8  # MLP workloads of batch_suite(), plus one GP workload
 MS_TRACES = 2048  # per workload: half of the registry's max_traces
 SHIFT_ROWS = 256  # traces streamed from another surface (= trim_on_drift)
 MS_PROBES = 32
+# the LM serving phase: RWKV-6 3B's WKV heads (40 x 64), Qwen3-4B's
+# attention heads (32 query / 8 key-value heads of 128); the kernels'
+# tolerances are tests/test_kernels.py's TestRwkvWKV and TestFlashAttention
+LM_ARCHS = ("rwkv6-3b", "qwen3-4b")
+LM_WKV_HEADS, LM_WKV_DH = 40, 64
+LM_HEADS, LM_KV_HEADS, LM_HEAD_DIM = 32, 8, 128
+LM_WKV_TOL = 3e-4
+LM_FLASH_S = (16, 37, 512, 4096)
+LM_PROMPTS = (16, 64, 256, 512)
+LM_REQUESTS, LM_SLOTS, LM_MAX_NEW = 8, 4, 32
+LM_CHECK_LEN = 16
+# fp32-compute decode against the full forward: the card's readings were
+# 1.5e-5 to 6.9e-5 at both models' full size (PERF.md, PR 14)
+LM_FP32_TOL = 1e-3
+# the bf16 dense tensor-core peak of one H100 SXM (NVIDIA data sheet)
+PEAK_BF16_S = 989e12
 
 
 def log(*args) -> None:
@@ -1170,6 +1202,378 @@ def phase_modelserver(dev, n_workloads: int = MS_WORKLOADS,
             "gate_rows": per[reg.info(sigs[0])["name"]]["gate_rows"]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: LM serving
+# ---------------------------------------------------------------------------
+
+
+def _bound(flops: float, nbytes: float, peak_flops: float) -> dict:
+    """The least time of ``flops`` at ``peak_flops`` and ``nbytes`` at the
+    HBM rate, in ms, and which of the two bounds it."""
+    t_ops = flops / peak_flops * 1e3
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def _wkv_inputs(dev, B: int, T: int, H: int, dh: int, seed: int,
+                state: bool):
+    """r/k/v normal, w = exp(-exp(0.5 N)), u = 0.5 N and, with ``state``, a
+    nonzero S0 (``tests/test_kernels.py::TestRwkvWKV``'s draws)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
+    r, k, v = (f32(rng.normal(size=(B, T, H, dh))) for _ in range(3))
+    w = f32(np.exp(-np.exp(rng.normal(size=(B, T, H, dh)) * 0.5)))
+    u = f32(rng.normal(size=(H, dh)) * 0.5)
+    S0 = f32(rng.normal(size=(B, H, dh, dh)) * 0.5) if state else None
+    return r, k, v, w, u, S0
+
+
+def _attn_inputs(dev, S: int, dtype, seed: int, H=LM_HEADS, Hk=LM_KV_HEADS,
+                 dh=LM_HEAD_DIM):
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    t = lambda *sh: torch.tensor(rng.normal(size=sh), dtype=torch.float32,  # noqa: E731
+                                 device=dev).to(dtype)
+    return t(1, S, H, dh), t(1, S, Hk, dh), t(1, S, Hk, dh)
+
+
+def phase_lm_kernels(dev) -> dict:
+    """rwkv6_wkv and flash_attention against their plain versions at the LM
+    path's shapes: WKV at RWKV-6 3B's 40 heads of 64 (a 512-token prefill
+    from zero, a decode step and an odd 37-step run from a nonzero state;
+    y and the final state at 3e-4), flash at Qwen3-4B's 32/8 heads of 128
+    (S = 16, 37, 512, 4096; bf16 at 2e-2, fp32 at 2e-3; one non-causal
+    case)."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_cuda,
+        flash_attention_plain,
+    )
+    from repro_torch.kernels.rwkv6_wkv import rwkv6_wkv_cuda
+
+    wkv_err = 0.0
+    for T, state in ((512, False), (1, True), (37, True)):
+        args = _wkv_inputs(dev, 1, T, LM_WKV_HEADS, LM_WKV_DH, T, state)
+        y, S = rwkv6_wkv_cuda(*args)
+        want_y, want_S = ref.rwkv6_wkv(*args)
+        wkv_err = max(wkv_err,
+                      _close(y, want_y, LM_WKV_TOL, f"rwkv6_wkv T={T} y"),
+                      _close(S, want_S, LM_WKV_TOL, f"rwkv6_wkv T={T} S"))
+    flash_err = {}
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 2e-3)):
+        worst = 0.0
+        for S in LM_FLASH_S:
+            q, k, v = _attn_inputs(dev, S, dtype, S)
+            got = flash_attention_cuda(q, k, v)
+            if got.dtype != dtype:
+                fail(f"flash_attention returned {got.dtype} for {dtype}")
+            worst = max(worst, _close(
+                got.float(), flash_attention_plain(q, k, v).float(), tol,
+                f"flash_attention S={S} {dtype}"))
+        flash_err[str(dtype).split(".")[-1]] = worst
+    q, k, v = _attn_inputs(dev, 512, torch.float32, 1)
+    flash_err["non_causal_float32"] = _close(
+        flash_attention_cuda(q, k, v, causal=False),
+        flash_attention_plain(q, k, v, causal=False), 2e-3,
+        "flash_attention non-causal")
+    log(f"lm kernels: rwkv6_wkv max |d| {wkv_err:.3e}; flash_attention "
+        f"{flash_err}")
+    return {"wkv_err": wkv_err, "flash_err": flash_err}
+
+
+def wkv_timing(dev, T: int, state: bool, reps: int) -> dict:
+    """Kernel and plain times of rwkv6_wkv at B=1, RWKV-6 3B's heads."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rwkv6_wkv import rwkv6_wkv_cuda
+
+    H, dh = LM_WKV_HEADS, LM_WKV_DH
+    args = _wkv_inputs(dev, 1, T, H, dh, 7, state)
+    ms = time_ms(lambda: rwkv6_wkv_cuda(*args), reps)
+    plain_ms = time_ms(lambda: ref.rwkv6_wkv(*args), max(2, reps // 20))
+    nbytes = 4 * (5 * T * H * dh + (2 if state else 1) * H * dh * dh
+                  + H * dh)
+    # per step and head: y_j = sum_i r_i S_ij (dh^2 FMAs; the u-term is
+    # O(dh)) and S = w * S + k v^T (a multiply and an FMA per element):
+    # 3 dh^2 instructions, 6 dh^2 flops at the FMA-counted fp32 peak
+    return {"shape": [1, T, H, dh], "state": state, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": None,
+            **_bound(6.0 * T * H * dh * dh, nbytes, PEAK_FP32_S)}
+
+
+def flash_timing(dev, S: int, dtype, reps: int) -> dict:
+    """Kernel, plain and library (SDPA, a yardstick the port never calls)
+    times of causal flash attention at B=1, Qwen3-4B's heads."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_cuda,
+        flash_attention_plain,
+    )
+
+    H, Hk, dh = LM_HEADS, LM_KV_HEADS, LM_HEAD_DIM
+    q, k, v = _attn_inputs(dev, S, dtype, 3)
+    ms = time_ms(lambda: flash_attention_cuda(q, k, v), reps)
+    plain_ms = time_ms(lambda: flash_attention_plain(q, k, v),
+                       max(2, reps // 4))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), reps)
+    esize = q.element_size()
+    peak = PEAK_BF16_S if dtype == torch.bfloat16 else PEAK_FP32_S
+    return {"shape": [1, S, H, Hk, dh], "dtype": str(dtype).split(".")[-1],
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            **_bound(2.0 * H * S * (S + 1) * dh,
+                     esize * (2 * S * H * dh + 2 * S * Hk * dh), peak)}
+
+
+def _decode_bytes(cparams) -> int:
+    """Bytes of the compute-dtype weights one decode token reads: every
+    leaf once, but one row of the embedding table."""
+    from repro_torch.nn.model import tree_leaves
+
+    total = sum(t.numel() * t.element_size() for t in tree_leaves(cparams))
+    if "embed" in cparams:
+        tok = cparams["embed"]["tok"]
+        total -= (tok.shape[0] - 1) * tok.shape[1] * tok.element_size()
+    return total
+
+
+def lm_profile(dev, engine, cfg, max_seq: int) -> dict:
+    """Where one decode step and one 512-token prefill spend their time:
+    wall ms (host clock, mean of 3, ending in a sync), the device's kernel
+    ms and count from the profiler (CUDA activity only, one call), and
+    the device's idle share of the wall time; the five kernels that take
+    most device time."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.nn import decode_step, init_cache, prefill
+
+    cache = init_cache(cfg, 1, max_seq, device=dev)
+    tok = engine._tokens([[1]])
+    prompt = engine._tokens(np.arange(max(LM_PROMPTS))[None] % cfg.vocab)
+    calls = {
+        "decode": lambda: decode_step(engine.cparams, cfg, cache,
+                                      {"tokens": tok}, max(LM_PROMPTS)),
+        "prefill_512": lambda: prefill(engine.cparams, cfg,
+                                       {"tokens": prompt}, max_seq=max_seq),
+    }
+    out = {}
+    for name, fn in calls.items():
+        fn()
+        _sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn()
+        _sync(dev)
+        wall_ms = (time.perf_counter() - t0) / 3 * 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            _sync(dev)
+        kern = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        dev_t = lambda e: getattr(e, "device_time_total",  # noqa: E731
+                                  getattr(e, "cuda_time_total", 0.0))
+        busy_ms = sum(dev_t(e) for e in kern) / 1e3
+        top = sorted(kern, key=dev_t, reverse=True)[:5]
+        seen = busy_ms > 0  # else the profiler recorded no device time
+        out[name] = {"wall_ms": wall_ms,
+                     "device_ms": busy_ms if seen else None,
+                     "kernels": sum(e.count for e in kern),
+                     "idle_share": 1.0 - busy_ms / wall_ms if seen else None,
+                     "top": [[e.key[:60], dev_t(e) / 1e3, e.count]
+                             for e in top]}
+    return out
+
+
+def _mixer_layers(cfg, kind: str) -> int:
+    """Layers of the model whose mixer is ``kind`` (``rwkv``/``attn``)."""
+    from repro_torch.nn.blocks import layer_plan, scan_length
+
+    return scan_length(cfg) * sum(m == kind for m, _ in layer_plan(cfg))
+
+
+def _no_plain_on_card(platform, label: str) -> dict:
+    plain = platform.plain_on_cuda_counts()
+    for name in ("rwkv6_wkv", "flash_attention"):
+        if plain.get(name, 0):
+            fail(f"{label}: the plain {name} ran {plain[name]} times on a "
+                 f"CUDA tensor")
+    return plain
+
+
+def lm_serve(dev, arch: str) -> dict:
+    """One model at full width and depth, weights random from seed 0.
+
+    First, in fp32 compute, against the full-sequence forward over 17
+    tokens: 16 decode steps from an empty cache, and one decode step from
+    the cache of a 16-token prefill (the hand-off of the KV cache or the
+    WKV state), each at ``LM_FP32_TOL``.  Then ``ServeEngine`` in the
+    model's bf16 compute: 4 slots, 8 requests with prompts cycling over
+    16/64/256/512 tokens, 32 new tokens each, greedy; prefill and decode
+    calls timed (each ends in a device sync).  The launch counts are those
+    of ``engine.run`` alone, and must be one per mixer layer and call."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import platform
+    from repro_torch.nn import (
+        decode_step,
+        forward,
+        init_cache,
+        init_params,
+        prefill,
+    )
+    from repro_torch.nn.model import tree_leaves
+    from repro_torch.serving import Request, ServeEngine
+
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev)
+    _sync(dev)
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"{arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{n_params / 1e9:.3f} B parameters in {init_s:.1f} s")
+
+    cfg32 = cfg.replace(compute_dtype="float32")
+    n = LM_CHECK_LEN
+    platform.reset_launches()  # the kernel checks ran the plain versions
+    toks = torch.tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (1, n + 1)), device=dev)
+    full, _ = forward(params, cfg32, {"tokens": toks}, mode="train")
+    cache = init_cache(cfg32, 1, n + 4, device=dev)
+    dec = 0.0
+    for t in range(n):
+        lg, cache = decode_step(params, cfg32, cache,
+                                {"tokens": toks[:, t:t + 1]}, t)
+        dec = max(dec, _close(lg, full[:, t], LM_FP32_TOL,
+                              f"{arch} fp32 decode step {t}"))
+    _, cache = prefill(params, cfg32, {"tokens": toks[:, :n]},
+                       max_seq=n + 4)
+    lg, _ = decode_step(params, cfg32, cache, {"tokens": toks[:, n:]}, n)
+    check = {"decode": dec, "decode_after_prefill": _close(
+        lg, full[:, n], LM_FP32_TOL, f"{arch} fp32 decode after prefill")}
+    del full, cache, lg
+    log(f"{arch}: fp32 decode vs forward max |d| {check}")
+    _no_plain_on_card(platform, f"{arch} fp32 check")
+
+    max_seq = max(LM_PROMPTS) + LM_MAX_NEW + 8
+    engine = ServeEngine(params, cfg, batch=LM_SLOTS, max_seq=max_seq,
+                         device=dev)
+    prefill_s, decode_s = {}, []
+    inner_prefill, inner_decode = engine._prefill, engine._decode
+
+    def timed_prefill(p, b):
+        t1 = time.perf_counter()
+        out = inner_prefill(p, b)
+        _sync(dev)
+        prefill_s.setdefault(int(b["tokens"].shape[1]), []).append(
+            time.perf_counter() - t1)
+        return out
+
+    def timed_decode(p, c, b, pos):
+        t1 = time.perf_counter()
+        out = inner_decode(p, c, b, pos)
+        _sync(dev)
+        decode_s.append(time.perf_counter() - t1)
+        return out
+
+    engine._prefill, engine._decode = timed_prefill, timed_decode
+    rng = np.random.default_rng(2)
+    reqs = [Request(rid=i, prompt=rng.integers(
+        0, cfg.vocab, LM_PROMPTS[i % len(LM_PROMPTS)]).astype(np.int32),
+        max_new=LM_MAX_NEW) for i in range(LM_REQUESTS)]
+    platform.reset_launches()
+    t0 = time.perf_counter()
+    engine.run(reqs)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    launches = platform.launch_counts()
+    plain = _no_plain_on_card(platform, f"{arch} ServeEngine.run")
+    log(f"{arch} ServeEngine.run launches: {launches}; plain versions on "
+        f"the card: {plain}")
+    n_prefill = sum(len(v) for v in prefill_s.values())
+    want = {"rwkv6_wkv": _mixer_layers(cfg, "rwkv")
+            * (n_prefill + len(decode_s)),
+            "flash_attention": _mixer_layers(cfg, "attn") * n_prefill}
+    for name, n_want in want.items():
+        if launches.get(name, 0) != n_want:
+            fail(f"{arch}: {name} launched {launches.get(name, 0)} times in "
+                 f"ServeEngine.run, want {n_want} ({n_prefill} prefills, "
+                 f"{len(decode_s)} decode steps)")
+    for r in reqs:
+        if not r.done or len(r.out) != LM_MAX_NEW or not all(
+                0 <= t < cfg.vocab for t in r.out):
+            fail(f"{arch}: request {r.rid} done={r.done} with "
+                 f"{len(r.out)} tokens")
+    for name, tree in (("params", params), ("cast params", engine.cparams),
+                       ("slot caches", engine.slot_cache)):
+        for t in tree_leaves(tree):
+            if t.device.type != torch.device(dev).type:
+                fail(f"{arch}: {name} hold a tensor on {t.device}")
+    tokens = sum(len(r.out) for r in reqs)
+    decode_bytes = _decode_bytes(engine.cparams)
+    prof = lm_profile(dev, engine, cfg, max_seq)
+    out = {"layers": cfg.n_layers, "d_model": cfg.d_model,
+           "params_b": n_params / 1e9, "init_s": init_s,
+           "launches": launches,
+           "fp32_check_err": check, "requests": len(reqs),
+           "tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
+           "decode_calls": len(decode_s),
+           "decode_ms_median": float(np.median(decode_s)) * 1e3,
+           "decode_ms_p90": float(np.percentile(decode_s, 90)) * 1e3,
+           "decode_bound_ms": decode_bytes / PEAK_BYTES_S * 1e3,
+           "prefill_ms": {n: float(np.median(v)) * 1e3
+                          for n, v in sorted(prefill_s.items())},
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "profile": prof}
+    log(f"{arch} serving: {out}")
+    del engine, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_lm(dev) -> dict:
+    """The LM serving phase: the two kernels against their plain versions
+    and timed, then RWKV-6 3B and Qwen3-4B through ``ServeEngine``, each
+    with the launch counts of its own ``ServeEngine.run``."""
+    import torch
+
+    chk = phase_lm_kernels(dev)
+    timing = {"wkv_prefill": wkv_timing(dev, 512, False, 50),
+              "wkv_decode": wkv_timing(dev, 1, True, 200),
+              "flash": {f"{dt}_{S}": flash_timing(dev, S, getattr(torch, dt),
+                                                  20 if S > 512 else 100)
+                        for dt in ("bfloat16", "float32")
+                        for S in LM_FLASH_S}}
+    log(f"lm kernel timing: {timing}")
+    models, launches = {}, {}
+    for arch in LM_ARCHS:
+        torch.cuda.reset_peak_memory_stats(dev)
+        models[arch] = lm_serve(dev, arch)
+        launches[arch] = models[arch]["launches"]
+    if launches["rwkv6-3b"].get("rwkv6_wkv", 0) <= 0:
+        fail("kernel rwkv6_wkv was not launched on the RWKV-6 serving path")
+    if launches["qwen3-4b"].get("flash_attention", 0) <= 0:
+        fail("kernel flash_attention was not launched on the Qwen3-4B "
+             "serving path")
+    return {"check": chk, "timing": timing, "models": models,
+            "launches": launches}
+
+
 def main() -> int:
     """Run the phases; exit code 0 only when every check held."""
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -1246,8 +1650,11 @@ def main() -> int:
     log(f"mlp_forward timing gate split: {m_gate}")
     log(f"mlp_forward timing 4096 rows: {m_big}")
     mark("modelserver")
+    # phase 7: LM serving (counted per model inside)
+    lm = phase_lm(dev)
+    mark("lm_serving")
 
-    # phase 7: assertions
+    # phase 8: assertions
     for label, st in (("single task", single["stats"]),
                       ("tenants", tenants["stats"]),
                       ("service", service["executor"]),
@@ -1298,6 +1705,22 @@ def main() -> int:
          "max_abs_err": m_chk["max_abs_err"], "ms": m_gate["ms"],
          "plain_ms": m_gate["plain_ms"], "bound_ms": m_gate["bound_ms"],
          "bound_by": m_gate["bound_by"], "library_ms": None},
+        {"name": "rwkv6_wkv", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/rwkv6_wkv.cu",
+         "replaces": "src/repro/kernels/rwkv6_wkv.py:27",
+         "launches": lm["launches"]["rwkv6-3b"]["rwkv6_wkv"],
+         "max_abs_err": lm["check"]["wkv_err"],
+         **{k: lm["timing"]["wkv_prefill"][k]
+            for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                      "library_ms")}},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:29",
+         "launches": lm["launches"]["qwen3-4b"]["flash_attention"],
+         "max_abs_err": max(lm["check"]["flash_err"].values()),
+         **{k: lm["timing"]["flash"]["bfloat16_512"][k]
+            for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                      "library_ms")}},
     ]
     summary = {"single_task": {k: v for k, v in single.items()
                                if k != "stats"},
@@ -1315,7 +1738,7 @@ def main() -> int:
                "pareto_4096": p_big, "descend": d,
                "compose_path": c_main, "compose_4096": c_big,
                "mlp_check": m_chk, "mlp_gate": m_gate, "mlp_4096": m_big,
-               "phase_s": phase_s}
+               "lm": lm, "phase_s": phase_s}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
@@ -1343,6 +1766,14 @@ def main() -> int:
         "mlp_forward_launches": ms_launches["mlp_forward"],
         "mlp_forward_ms": {"gate_rows": m_gate["ms"], "4096": m_big["ms"]}}}),
         flush=True)
+    print(json.dumps({"lm_serving": {
+        arch: {**{k: m[k] for k in ("layers", "d_model", "tokens",
+                                    "tokens_per_s", "decode_ms_median",
+                                    "decode_bound_ms", "prefill_ms",
+                                    "fp32_check_err")},
+               "idle_share": {k: v["idle_share"]
+                              for k, v in m["profile"].items()}}
+        for arch, m in lm["models"].items()}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,6 +8,9 @@ plain PyTorch version (the CPU tier and the kernel's oracle on the card).
                     (csrc/compose.cu)
     mogd_mlp        fused surrogate-MLP forward behind the regressors and
                     the trainer (csrc/mogd_mlp.cu)
+    rwkv6_wkv       RWKV-6 WKV recurrence from a given state
+                    (csrc/rwkv6_wkv.cu)
+    flash_attention causal GQA flash attention (csrc/flash_attention.cu)
 
 ``platform`` holds the device policy, ``native`` builds and loads the CUDA
 library, ``ref`` holds the autodiff oracles and ``ops`` the public wrappers.

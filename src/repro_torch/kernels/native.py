@@ -22,7 +22,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
-SOURCES = ("pareto_filter.cu", "mogd_descend.cu", "compose.cu", "mogd_mlp.cu")
+SOURCES = ("pareto_filter.cu", "mogd_descend.cu", "compose.cu", "mogd_mlp.cu",
+           "rwkv6_wkv.cu", "flash_attention.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # No --use_fast_math: expf/cosf/powf/sqrtf and division stay IEEE, and
 # -fmad=false keeps elementwise a*b+c rounded twice, as PyTorch's separate
@@ -137,6 +138,14 @@ def library() -> ctypes.CDLL:
                 _VP, _I, _I, _VP, _VP, _VP,  # x, B, layers, dims, ws, bs
                 _I, _I, _I, _I, _VP, _VP]  # tile, stride, chunk, smem, out
             lib.mlp_forward.restype = _I
+            lib.rwkv6_wkv.argtypes = [
+                _VP, _VP, _VP, _VP, _VP, _VP, _VP,  # r k v w strides u S0
+                _I, _I, _I, _I, _VP, _VP, _VP]  # B T H dh, y, S_out, stream
+            lib.rwkv6_wkv.restype = _I
+            lib.flash_attention_fwd.argtypes = [
+                _VP, _VP, _VP, _VP,  # q k v o
+                _I, _I, _I, _I, _I, _I, _F, _I, _VP]  # B S H Hk dh bf16 ...
+            lib.flash_attention_fwd.restype = _I
             lib.mogd_plan_bytes.argtypes = []
             lib.mogd_plan_bytes.restype = _I
             lib.repro_cuda_error_string.argtypes = [_I]

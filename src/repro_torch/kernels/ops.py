@@ -1,7 +1,8 @@
 """Public wrappers over the port's kernels, as the reference's ``ops``.
 
-Inputs are cast to float32 on their own device; CUDA tensors go through the
-hand-written kernels, CPU tensors through their plain versions (see
+Inputs are cast to float32 on their own device (flash attention keeps its
+bf16 or fp32 inputs and answers in their dtype); CUDA tensors go through
+the hand-written kernels, CPU tensors through their plain versions (see
 ``kernels.platform``).
 """
 
@@ -9,8 +10,10 @@ from __future__ import annotations
 
 import torch
 
+from .flash_attention import flash_attention as _flash_attention
 from .mogd_mlp import mlp_forward_fused
 from .pareto_filter import cross_dominator_counts, pareto_counts_blocked
+from .rwkv6_wkv import rwkv6_wkv
 
 
 def mlp_forward(x, ws, bs) -> torch.Tensor:
@@ -32,3 +35,19 @@ def cross_dominated(FA, FB) -> torch.Tensor:
     """(N, k) x (M, k) -> (N,) bool: row of FA dominated by any row of FB
     (the frontier store's incremental-update primitive)."""
     return cross_dominator_counts(_f32(FA), _f32(FB)) > 0
+
+
+def flash_attention(q, k, v, causal: bool = True) -> torch.Tensor:
+    """q: (B, S, H, dh); k/v: (B, S, Hk, dh) -> (B, S, H, dh) in q's dtype.
+    Grouped-query heads are mapped inside the kernel (no repeat, no
+    (B, H) fold), and any S is taken."""
+    return _flash_attention(q, k, v, causal=causal)
+
+
+def rwkv_wkv(r, k, v, w, u, S0=None):
+    """r/k/v/w: (B, T, H, dh); u: (H, dh); S0: (B, H, dh, dh) or None.
+    Returns (y (B, T, H, dh), S_final) in float32: the kernel reads the
+    time mix's layout through its strides, from the given state."""
+    f32 = lambda t: t.to(torch.float32)  # noqa: E731
+    return rwkv6_wkv(f32(r), f32(k), f32(v), f32(w), f32(u),
+                     None if S0 is None else f32(S0))

@@ -119,3 +119,44 @@ def pairwise_compose(FA, FB, add_mask):
     comp = torch.where(m, FA[:, None, :] + FB[None, :, :],
                        torch.maximum(FA[:, None, :], FB[None, :, :]))
     return comp.reshape(-1, FA.shape[-1])
+
+
+def flash_attention(q, k, v, causal=True):
+    """q/k/v: (B, S, H, dh) with H == Hk (GQA repeated upstream).  Softmax
+    attention with scale ``dh**-0.5``, scores and softmax in fp32, the
+    probabilities cast to ``v``'s dtype for the second product.  The plain
+    version of ``csrc/flash_attention.cu``: a call on a CUDA tensor is
+    counted in ``platform.PLAIN_ON_CUDA``."""
+    if q.device.type == "cuda":
+        PLAIN_ON_CUDA["flash_attention"] += 1
+    S, dh = q.shape[1], q.shape[-1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * (dh ** -0.5)
+    if causal:
+        mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v)
+
+
+def rwkv6_wkv(r, k, v, w, u, S0=None):
+    """r/k/v/w: (B, T, H, dh) fp32; u: (H, dh); S0: (B, H, dh, dh) or None
+    (zeros).  Returns (y (B, T, H, dh), S_final (B, H, dh, dh)).
+
+    y_t = r_t^T (S_{t-1} + diag(u) k_t v_t^T);  S_t = diag(w_t) S_{t-1} +
+    k_t v_t^T — the sequential loop, one step at a time.  The plain version
+    of ``csrc/rwkv6_wkv.cu``: a call on a CUDA tensor is counted in
+    ``platform.PLAIN_ON_CUDA``."""
+    if r.device.type == "cuda":
+        PLAIN_ON_CUDA["rwkv6_wkv"] += 1
+    B, T, H, dh = r.shape
+    S = (torch.zeros((B, H, dh, dh), dtype=torch.float32, device=r.device)
+         if S0 is None else S0)
+    ys = []
+    for t in range(T):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]
+        ys.append(torch.einsum("bhi,bhij->bhj", r[:, t],
+                               S + u[None, :, :, None] * kv))
+        S = w[:, t, :, :, None] * S + kv
+    y = (torch.stack(ys, dim=1) if ys else
+         torch.zeros((B, 0, H, dh), dtype=torch.float32, device=r.device))
+    return y, S

@@ -1,0 +1,33 @@
+"""Model substrate: GQA attention (RoPE, qk-norm), RWKV-6 (Finch), norms,
+blocks over a loop of layers, and the LM assembly with its prefill and
+decode entry points.  Mamba and MoE blocks come with a later slice
+(``nn.blocks.UNPORTED``).
+
+Parameters are nested dicts of tensors; ``nn.convert`` carries the JAX
+package's parameters and caches across.
+"""
+
+from .config import (
+    SHAPES,
+    ArchConfig,
+    HybridConfig,
+    MambaConfig,
+    MoEConfig,
+    RWKVConfig,
+    ShapeSpec,
+)
+from .model import (
+    cache_max_seq,
+    cast_params,
+    decode_step,
+    forward,
+    init_cache,
+    init_params,
+    prefill,
+)
+
+__all__ = [
+    "SHAPES", "ArchConfig", "HybridConfig", "MambaConfig", "MoEConfig",
+    "RWKVConfig", "ShapeSpec", "cache_max_seq", "cast_params", "decode_step",
+    "forward", "init_cache", "init_params", "prefill",
+]

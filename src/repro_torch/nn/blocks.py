@@ -1,0 +1,208 @@
+"""Decoder blocks and the loop over layers.
+
+Block kinds ported so far:
+
+* ``attn``  — pre-norm GQA attention + MLP             [dense/vlm/audio]
+* ``rwkv``  — RWKV-6 time mix + channel mix            [ssm]
+
+Mamba mixers and MoE FFNs (Jamba, qwen2-moe, grok-1) raise
+``NotImplementedError``: they come with the Jamba slice (ROADMAP Queue 2
+item 7, ``nn/{mamba,moe}``).  Parameters and caches are lists over scan
+units (``scan_length(cfg)`` of them), each a dict ``{"l0": ..., }`` over
+the unit's layer plan — the reference's stacked leaves, one list entry per
+leading index (``nn.convert`` maps one onto the other).  A plain Python
+loop over the units replaces ``lax.scan``; remat belongs to training.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from .attention import attention, attn_init, decode_attention, init_layer_cache
+from .config import ArchConfig
+from .layers import mlp, mlp_init, rmsnorm, rmsnorm_init
+from .rwkv import (
+    rwkv_channel_mix,
+    rwkv_channel_mix_init,
+    rwkv_time_mix,
+    rwkv_time_mix_init,
+)
+
+UNPORTED = {
+    "mamba": "Mamba mixers come with the Jamba slice (ROADMAP Queue 2 item "
+             "7: nn/mamba.py and the mamba_scan kernel)",
+    "moe": "MoE FFNs (qwen2-moe, grok-1, Jamba) come with the Jamba slice "
+           "(ROADMAP Queue 1 item 16: nn/moe.py, keeping the capacity fix)",
+}
+
+
+# ---------------------------------------------------------------------------
+# Layer plans: which (mixer, ffn) each layer uses
+# ---------------------------------------------------------------------------
+
+
+def layer_plan(cfg: ArchConfig) -> list[tuple[str, str]]:
+    """Per-layer (mixer, ffn) within one scan unit.
+
+    Uniform families return a single-entry plan (n_layers units); hybrid
+    returns ``period`` entries (n_layers // period units).
+    """
+    if cfg.family == "ssm":
+        return [("rwkv", "rwkv_cm")]
+    if cfg.hybrid is not None:
+        h = cfg.hybrid
+        plan = []
+        for i in range(h.period):
+            mixer = "attn" if i % h.period == h.attn_index else "mamba"
+            ffn = "moe" if (cfg.moe and i % h.moe_period == h.moe_offset) else "mlp"
+            plan.append((mixer, ffn))
+        return plan
+    ffn = "moe" if cfg.moe is not None else "mlp"
+    return [("attn", ffn)]
+
+
+def scan_length(cfg: ArchConfig) -> int:
+    n_unit = len(layer_plan(cfg))
+    if cfg.n_layers % n_unit:
+        raise ValueError(f"{cfg.name}: {cfg.n_layers} layers do not tile a "
+                         f"plan of {n_unit}")
+    return cfg.n_layers // n_unit
+
+
+def check_ported(cfg: ArchConfig) -> list[tuple[str, str]]:
+    """The layer plan, or ``NotImplementedError`` naming the slice that
+    brings a kind this port does not run yet."""
+    plan = layer_plan(cfg)
+    for mixer, ffn in plan:
+        for kind in (mixer, ffn):
+            if kind in UNPORTED:
+                raise NotImplementedError(f"{cfg.name}: {UNPORTED[kind]}")
+    return plan
+
+
+# ---------------------------------------------------------------------------
+# Single layer
+# ---------------------------------------------------------------------------
+
+
+def _layer_init(gen: torch.Generator, cfg: ArchConfig, mixer: str,
+                ffn: str) -> dict:
+    dt = cfg.pdtype()
+    p: dict[str, Any] = {"norm1": rmsnorm_init(gen, cfg.d_model, dt)}
+    if mixer == "attn":
+        p["attn"] = attn_init(gen, cfg)
+    elif mixer == "rwkv":
+        p["time_mix"] = rwkv_time_mix_init(gen, cfg, cfg.rwkv)
+    else:
+        raise ValueError(mixer)
+    p["norm2"] = rmsnorm_init(gen, cfg.d_model, dt)
+    if ffn == "mlp":
+        p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.activation, dt)
+    elif ffn == "rwkv_cm":
+        p["channel_mix"] = rwkv_channel_mix_init(gen, cfg)
+    else:
+        raise ValueError(ffn)
+    return p
+
+
+def _layer_cache_init(cfg: ArchConfig, mixer: str, batch: int, max_seq: int,
+                      device) -> dict:
+    """Per-layer decode cache."""
+    if mixer == "attn":
+        return init_layer_cache(cfg, batch, max_seq, device)
+    if mixer == "rwkv":
+        r = cfg.rwkv
+        H, dh = cfg.d_model // r.head_size, r.head_size
+        zeros = lambda s, d: torch.zeros(s, dtype=d, device=device)  # noqa: E731
+        return {"S": zeros((batch, H, dh, dh), torch.float32),
+                "x_tm": zeros((batch, cfg.d_model), cfg.cdtype()),
+                "x_cm": zeros((batch, cfg.d_model), cfg.cdtype())}
+    raise ValueError(mixer)
+
+
+def _apply_mixer(p, cfg: ArchConfig, mixer: str, x, mode, cache, pos,
+                 max_seq):
+    """Returns (y, new_cache)."""
+    if mixer == "attn":
+        if mode == "decode":
+            return decode_attention(p["attn"], cfg, x, cache, pos)
+        if mode == "prefill":
+            y, (k, v) = attention(p["attn"], cfg, x, return_kv=True,
+                                  max_seq=max_seq)
+            return y, {"k": k, "v": v}
+        return attention(p["attn"], cfg, x), None
+    if mixer == "rwkv":
+        st = (cache["S"], cache["x_tm"]) if cache is not None else None
+        y, (S, x_tm) = rwkv_time_mix(p["time_mix"], cfg, cfg.rwkv, x, st)
+        new = {"S": S, "x_tm": x_tm} if mode != "train" else None
+        return y, new
+    raise ValueError(mixer)
+
+
+def _apply_ffn(p, cfg: ArchConfig, ffn: str, x, mode, cache):
+    """Returns (y, extra_cache_updates or {})."""
+    if ffn == "mlp":
+        return mlp(p["mlp"], x, cfg.activation), {}
+    if ffn == "rwkv_cm":
+        prev = cache.get("x_cm") if cache is not None else None
+        y, x_cm = rwkv_channel_mix(p["channel_mix"], cfg, x, prev)
+        return y, ({"x_cm": x_cm} if mode != "train" else {})
+    raise ValueError(ffn)
+
+
+def layer_apply(p, cfg: ArchConfig, mixer: str, ffn: str, x, mode, cache,
+                pos, max_seq):
+    """One pre-norm residual layer. Returns (x', new_cache)."""
+    h, new_cache = _apply_mixer(
+        p, cfg, mixer, rmsnorm(p["norm1"], x, cfg.norm_eps), mode, cache,
+        pos, max_seq)
+    x = x + h
+    h, cm_cache = _apply_ffn(
+        p, cfg, ffn, rmsnorm(p["norm2"], x, cfg.norm_eps), mode, cache)
+    x = x + h
+    if new_cache is not None and cm_cache:
+        new_cache = {**new_cache, **cm_cache}
+    elif cm_cache:
+        new_cache = cm_cache
+    return x, new_cache
+
+
+# ---------------------------------------------------------------------------
+# All layers
+# ---------------------------------------------------------------------------
+
+
+def blocks_init(gen: torch.Generator, cfg: ArchConfig) -> list:
+    plan = check_ported(cfg)
+    return [{f"l{i}": _layer_init(gen, cfg, mixer, ffn)
+             for i, (mixer, ffn) in enumerate(plan)}
+            for _ in range(scan_length(cfg))]
+
+
+def blocks_cache_init(cfg: ArchConfig, batch: int, max_seq: int,
+                      device) -> list:
+    plan = check_ported(cfg)
+    return [{f"l{i}": _layer_cache_init(cfg, mixer, batch, max_seq, device)
+             for i, (mixer, _) in enumerate(plan)}
+            for _ in range(scan_length(cfg))]
+
+
+def blocks_apply(block_params: list, cfg: ArchConfig, x, mode="train",
+                 cache=None, pos=None, max_seq=None):
+    """Run all layers. Returns (x, new cache list or None)."""
+    plan = layer_plan(cfg)
+    caches = []
+    for u, unit_p in enumerate(block_params):
+        unit_c = cache[u] if cache is not None else None
+        new_unit = {}
+        for i, (mixer, ffn) in enumerate(plan):
+            c = unit_c[f"l{i}"] if unit_c is not None else None
+            x, nc = layer_apply(unit_p[f"l{i}"], cfg, mixer, ffn, x, mode, c,
+                                pos, max_seq)
+            if nc is not None:
+                new_unit[f"l{i}"] = nc
+        caches.append(new_unit or None)
+    new_cache = caches if caches and caches[0] is not None else None
+    return x, new_cache

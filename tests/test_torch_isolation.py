@@ -31,6 +31,10 @@ from repro_torch.core import (
 from repro_torch.core.frontier_store import FrontierStore
 from repro_torch.data.workloads import batch_problem, batch_suite, batch_task
 from repro_torch.exec import ProbeExecutor, default_executor
+from repro_torch.configs import get_smoke
+from repro_torch.launch import serve
+from repro_torch.nn import init_cache, init_params
+from repro_torch.serving import ServeEngine
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -54,7 +58,16 @@ def test_every_module_is_covered():
                  "repro_torch.kernels.mogd_mlp", "repro_torch.models.gp",
                  "repro_torch.models.train", "repro_torch.modelserver.drift",
                  "repro_torch.modelserver.trainer",
-                 "repro_torch.modelserver.registry"):
+                 "repro_torch.modelserver.registry",
+                 "repro_torch.configs", "repro_torch.configs.rwkv6_3b",
+                 "repro_torch.configs.qwen3_4b", "repro_torch.nn.config",
+                 "repro_torch.nn.layers", "repro_torch.nn.rwkv",
+                 "repro_torch.nn.attention", "repro_torch.nn.blocks",
+                 "repro_torch.nn.model", "repro_torch.nn.convert",
+                 "repro_torch.kernels.rwkv6_wkv",
+                 "repro_torch.kernels.flash_attention",
+                 "repro_torch.serving.engine", "repro_torch.serving.steps",
+                 "repro_torch.launch.serve"):
         assert want in mods
 
 
@@ -96,6 +109,7 @@ def no_cuda():
 @pytest.mark.parametrize("entry", [
     "zdt1_task", "make_zdt1", "batch_task", "batch_problem", "executor",
     "default_executor", "store", "solve_pf", "pf", "solver", "solver_for",
+    "init_params", "init_cache", "serve_engine", "launch_serve",
 ])
 def test_entry_points_default_to_cuda_and_raise_here(no_cuda, entry):
     cpu_problem = as_problem(zdt1_task(d=3, device="cpu"))
@@ -111,6 +125,13 @@ def test_entry_points_default_to_cuda_and_raise_here(no_cuda, entry):
         "pf": lambda: ProgressiveFrontier(cpu_problem),
         "solver": lambda: MOGDSolver(cpu_problem, MOGDConfig()),
         "solver_for": lambda: cpu_problem.solver_for(MOGDConfig()),
+        "init_params": lambda: init_params(get_smoke("qwen3-4b")),
+        "init_cache": lambda: init_cache(get_smoke("rwkv6-3b"), 1, 8),
+        "serve_engine": lambda: ServeEngine(
+            init_params(get_smoke("qwen3-4b"), device="cpu"),
+            get_smoke("qwen3-4b"), batch=1, max_seq=8),
+        "launch_serve": lambda: serve.main(["--arch", "rwkv6-3b",
+                                            "--smoke"]),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()

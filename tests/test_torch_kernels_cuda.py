@@ -18,7 +18,9 @@ descent (width 16, 25 steps) at ``atol=2e-5``, the reference's own
 tolerance (``tests/test_mogd_descend.py``); the fused MLP forward at 2e-5
 (3e-5 at the paper's shape) and its gradients at 1e-4, the tolerances of
 ``tests/test_kernels.py::TestMogdMLP`` and
-``tests/test_mogd_descend.py::TestFusedMLPVJP``.
+``tests/test_mogd_descend.py::TestFusedMLPVJP``; the WKV recurrence at
+3e-4 and flash attention at 2e-3 (fp32) and 2e-2 (bf16), the tolerances of
+``TestRwkvWKV`` and ``TestFlashAttention`` in ``tests/test_kernels.py``.
 """
 
 from __future__ import annotations
@@ -221,3 +223,134 @@ class TestMLPForwardOnCard:
         with pytest.raises(ValueError, match="on cpu"):
             mlp_forward_cuda(x, [ws[0].cpu(), ws[1]], bs)
         assert mlp_forward_cuda(x[:0], ws, bs).shape == (0, 1)
+
+
+# ---------------------------------------------------------------------------
+# The LM kernels: RWKV-6 WKV and flash attention
+# ---------------------------------------------------------------------------
+# WKV at 3e-4 (tests/test_kernels.py::TestRwkvWKV), the final state too;
+# flash attention at 2e-3 in fp32 and 2e-2 in bf16 (TestFlashAttention).
+
+
+def _wkv_case(B, T, H, dh, seed, dev, state=False):
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
+    r, k, v = (f32(rng.normal(size=(B, T, H, dh))) for _ in range(3))
+    w = f32(np.exp(-np.exp(rng.normal(size=(B, T, H, dh)) * 0.5)))
+    u = f32(rng.normal(size=(H, dh)) * 0.5)
+    S0 = f32(rng.normal(size=(B, H, dh, dh)) * 0.5) if state else None
+    return r, k, v, w, u, S0
+
+
+@pytest.mark.cuda
+class TestWKVOnCard:
+    @pytest.mark.parametrize("B,T,H,dh,state", [
+        (1, 512, 40, 64, False), (1, 1, 40, 64, True), (2, 37, 3, 16, True),
+        (2, 256, 3, 32, False), (1, 130, 2, 128, True), (3, 64, 5, 64, True)])
+    def test_equals_plain(self, cuda_device, B, T, H, dh, state):
+        from repro_torch.kernels.rwkv6_wkv import rwkv6_wkv_cuda
+
+        args = _wkv_case(B, T, H, dh, T + H, cuda_device, state)
+        before = platform.launch_counts().get("rwkv6_wkv", 0)
+        y, S = rwkv6_wkv_cuda(*args)
+        torch.cuda.synchronize()
+        assert platform.launch_counts()["rwkv6_wkv"] == before + 1
+        want_y, want_S = ref.rwkv6_wkv(*args)
+        for got, want in ((y, want_y), (S, want_S)):
+            np.testing.assert_allclose(got.cpu().numpy(),
+                                       want.cpu().numpy(), rtol=3e-4,
+                                       atol=3e-4)
+
+    def test_reads_strided_inputs(self, cuda_device):
+        """r/k/v/w as column slices of one projection (the time mix's
+        layout with a t stride wider than H*dh)."""
+        from repro_torch.kernels.rwkv6_wkv import rwkv6_wkv_cuda
+
+        rng = np.random.default_rng(1)
+        B, T, H, dh = 2, 33, 4, 32
+        big = torch.tensor(rng.normal(size=(B, T, 4, H, dh)),
+                           dtype=torch.float32, device=cuda_device)
+        r, k, v = big[:, :, 0], big[:, :, 1], big[:, :, 2]
+        w = torch.sigmoid(big[:, :, 3])
+        u = torch.tensor(rng.normal(size=(H, dh)) * 0.5, dtype=torch.float32,
+                         device=cuda_device)
+        assert not r.is_contiguous()
+        y, S = rwkv6_wkv_cuda(r, k, v, w, u)
+        want_y, want_S = ref.rwkv6_wkv(r.contiguous(), k.contiguous(),
+                                       v.contiguous(), w.contiguous(), u)
+        np.testing.assert_allclose(y.cpu().numpy(), want_y.cpu().numpy(),
+                                   rtol=3e-4, atol=3e-4)
+        np.testing.assert_allclose(S.cpu().numpy(), want_S.cpu().numpy(),
+                                   rtol=3e-4, atol=3e-4)
+
+    def test_bad_inputs_raise(self, cuda_device):
+        from repro_torch.kernels.rwkv6_wkv import rwkv6_wkv_cuda
+
+        r, k, v, w, u, _ = _wkv_case(1, 4, 2, 16, 0, cuda_device)
+        with pytest.raises(ValueError, match="head size"):
+            rwkv6_wkv_cuda(r[..., :12], k[..., :12], v[..., :12],
+                           w[..., :12], u[:, :12])
+        with pytest.raises(ValueError, match="float32"):
+            rwkv6_wkv_cuda(r.double(), k, v, w, u)
+        with pytest.raises(ValueError, match="S0"):
+            rwkv6_wkv_cuda(r, k, v, w, u, torch.zeros(1, 2, 16, 8,
+                                                      device=cuda_device))
+
+
+def _attn_case(B, S, H, Hk, dh, dtype, seed, dev):
+    rng = np.random.default_rng(seed)
+    t = lambda *s: torch.tensor(rng.normal(size=s), dtype=torch.float32,  # noqa: E731
+                                device=dev).to(dtype)
+    return t(B, S, H, dh), t(B, S, Hk, dh), t(B, S, Hk, dh)
+
+
+@pytest.mark.cuda
+class TestFlashOnCard:
+    @pytest.mark.parametrize("B,S,H,Hk,dh", [
+        (1, 1, 4, 2, 16), (1, 16, 32, 8, 128), (1, 37, 32, 8, 128),
+        (2, 64, 4, 4, 32), (2, 65, 6, 3, 64), (1, 200, 8, 2, 64),
+        (2, 128, 4, 1, 128), (1, 512, 32, 8, 128)])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_equals_plain(self, cuda_device, B, S, H, Hk, dh, dtype):
+        from repro_torch.kernels.flash_attention import (
+            flash_attention_cuda,
+            flash_attention_plain,
+        )
+
+        q, k, v = _attn_case(B, S, H, Hk, dh, dtype, S + H, cuda_device)
+        before = platform.launch_counts().get("flash_attention", 0)
+        got = flash_attention_cuda(q, k, v)
+        torch.cuda.synchronize()
+        assert platform.launch_counts()["flash_attention"] == before + 1
+        assert got.dtype == dtype and got.shape == q.shape
+        tol = 2e-2 if dtype == torch.bfloat16 else 2e-3
+        np.testing.assert_allclose(
+            got.float().cpu().numpy(),
+            flash_attention_plain(q, k, v).float().cpu().numpy(), rtol=tol,
+            atol=tol)
+
+    @pytest.mark.parametrize("S", [33, 256])
+    def test_non_causal(self, cuda_device, S):
+        from repro_torch.kernels.flash_attention import (
+            flash_attention_cuda,
+            flash_attention_plain,
+        )
+
+        q, k, v = _attn_case(1, S, 4, 2, 32, torch.float32, 3, cuda_device)
+        np.testing.assert_allclose(
+            flash_attention_cuda(q, k, v, causal=False).cpu().numpy(),
+            flash_attention_plain(q, k, v, causal=False).cpu().numpy(),
+            rtol=2e-3, atol=2e-3)
+
+    def test_bad_inputs_raise(self, cuda_device):
+        from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+        q, k, v = _attn_case(1, 8, 4, 2, 16, torch.float32, 0, cuda_device)
+        with pytest.raises(ValueError, match="group"):
+            flash_attention_cuda(q[:, :, :3], k, v)
+        with pytest.raises(ValueError, match="head size"):
+            flash_attention_cuda(q[..., :8], k[..., :8], v[..., :8])
+        with pytest.raises(ValueError, match="takes"):
+            flash_attention_cuda(q.double(), k.double(), v.double())
+        with pytest.raises(ValueError, match="q: torch.float32"):
+            flash_attention_cuda(q, k.bfloat16(), v.bfloat16())
