@@ -31,22 +31,28 @@ Phases (any failure exits non-zero; nothing is caught and turned into 0):
    ``MOOService``, then traces from another workload's surface streamed into
    one workload until drift fires, the inline retrain to v2 and the warm
    re-solve of its session.
-7. LM serving at full width and depth, weights random from a seed:
-   ``rwkv6_wkv`` (RWKV-6 3B's 40 heads of 64: a 512-token prefill, a
-   decode step from a nonzero state, 37 steps) and ``flash_attention``
-   (Qwen3-4B's 32/8 heads of 128, S = 16, 37, 512, 4096, bf16 and fp32,
-   one non-causal case) against their plain versions and timed (SDPA
-   timed beside flash as a yardstick only); then for ``rwkv6-3b`` (32
-   layers) and ``qwen3-4b`` (36 layers) in turn: ``init_params`` on the
-   card; in fp32 compute, 16 decode steps from an empty cache and one
-   decode step from a 16-token prefill's cache against the full forward;
-   then ``ServeEngine`` in bf16 serving 8 requests over 4 slots (prompts
-   of 16-512 tokens, 32 new tokens each, greedy), with tokens/s,
-   per-token decode and prefill times.  The launch counts are set to 0
-   just before ``ServeEngine.run`` and read just after it: each kernel
-   must have launched exactly once per mixer layer of every prefill (and,
-   for WKV, every decode step) the engine made, and no plain WKV or
-   attention may have run on a CUDA tensor.
+7. LM serving at full width, weights random from a seed: ``rwkv6_wkv``
+   (RWKV-6 3B's 40 heads of 64: a 512-token prefill, a decode step from a
+   nonzero state, 37 steps), ``flash_attention`` (Qwen3-4B's 32/8 heads of
+   128, S = 16, 37, 512, 4096, bf16 and fp32, one non-causal case) and
+   ``mamba_scan`` (Jamba's d_inner 8192 with 16 states: a 512-token
+   prefill from zero and from a nonzero state, a decode step, 37 steps)
+   against their plain versions and timed (SDPA timed beside flash as a
+   yardstick only); then for ``rwkv6-3b`` (32 layers), ``qwen3-4b`` (36),
+   ``jamba-v0.1-52b`` and ``qwen2-moe-a2.7b`` (24) in turn:
+   ``init_params`` on the card; in fp32 compute, 16 decode steps from an
+   empty cache and one decode step from a 16-token prefill's cache against
+   the full forward; then ``ServeEngine`` in bf16 serving 8 requests over
+   4 slots (prompts of 16-512 tokens, 32 new tokens each, greedy), with
+   tokens/s, per-token decode and prefill times and peak device memory.
+   Jamba's depth is cut to fit one card: 8 layers (one period of its
+   plan) for the fp32 check, 16 layers with bf16 parameters for serving;
+   qwen2-moe serves with bf16 parameters.  Each instance is freed before
+   the next is built.  The launch counts are set to 0 just before
+   ``ServeEngine.run`` and read just after it: each kernel must have
+   launched exactly once per mixer layer of every prefill (and, for WKV
+   and the scan, every decode step) the engine made, and no plain WKV,
+   attention or scan may have run on a CUDA tensor.
 8. Assertions: fused dispatches, no fallbacks, every kernel launched on its
    path, no JAX or ``repro`` module loaded, everything on ``cuda``.
 
@@ -55,7 +61,7 @@ and ``mlp_forward`` (the fused surrogate forward), its gradients and a
 ``vmap(grad)`` through ``MLPRegressor`` to theirs.
 
 Standard output ends with the service, model-server and LM-serving summary
-lines, the kernels' JSON record (six kernels) and the device JSON line.  Without a CUDA device, or outside the repository, the
+lines, the kernels' JSON record (seven kernels) and the device JSON line.  Without a CUDA device, or outside the repository, the
 script exits non-zero and prints no result.
 """
 
@@ -94,10 +100,21 @@ MS_PROBES = 32
 # the LM serving phase: RWKV-6 3B's WKV heads (40 x 64), Qwen3-4B's
 # attention heads (32 query / 8 key-value heads of 128); the kernels'
 # tolerances are tests/test_kernels.py's TestRwkvWKV and TestFlashAttention
-LM_ARCHS = ("rwkv6-3b", "qwen3-4b")
+LM_ARCHS = ("rwkv6-3b", "qwen3-4b", "jamba-v0.1-52b", "qwen2-moe-a2.7b")
+# config overrides of the fp32 check's instance and of the served one (None:
+# the check's parameters serve, cast to bf16 by the engine).  Jamba at 32
+# layers is 51.6 B parameters: one period of its plan (8 layers, 53.2 GB in
+# fp32) for the check, two (16 layers, 52.1 GB in bf16) for serving
+LM_CUTS = {"jamba-v0.1-52b": ({"n_layers": 8},
+                              {"n_layers": 16, "param_dtype": "bfloat16"}),
+           "qwen2-moe-a2.7b": ({}, {"param_dtype": "bfloat16"})}
 LM_WKV_HEADS, LM_WKV_DH = 40, 64
 LM_HEADS, LM_KV_HEADS, LM_HEAD_DIM = 32, 8, 128
 LM_WKV_TOL = 3e-4
+# Jamba's Mamba mixers: d_inner 8192, d_state 16; the scan's tolerance is
+# tests/test_kernels.py::TestMambaScan's
+LM_SCAN_D, LM_SCAN_N = 8192, 16
+LM_SCAN_TOL = 3e-4
 LM_FLASH_S = (16, 37, 512, 4096)
 LM_PROMPTS = (16, 64, 256, 512)
 LM_REQUESTS, LM_SLOTS, LM_MAX_NEW = 8, 4, 32
@@ -1243,13 +1260,33 @@ def _attn_inputs(dev, S: int, dtype, seed: int, H=LM_HEADS, Hk=LM_KV_HEADS,
     return t(1, S, H, dh), t(1, S, Hk, dh), t(1, S, Hk, dh)
 
 
+def _scan_inputs(dev, T: int, seed: int, state: bool, d=LM_SCAN_D,
+                 n=LM_SCAN_N):
+    """dt = softplus(N), B_t, C_t, x normal, A = -exp(0.3 N) and, with
+    ``state``, a nonzero h0 (``tests/test_kernels.py::TestMambaScan``'s
+    draws), at B = 1."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
+    dt = f32(np.logaddexp(rng.normal(size=(1, T, d)), 0))
+    Bt, Ct = (f32(rng.normal(size=(1, T, n))) for _ in range(2))
+    xs = f32(rng.normal(size=(1, T, d)))
+    A = f32(-np.exp(rng.normal(size=(d, n)) * 0.3))
+    h0 = f32(rng.normal(size=(1, d, n)) * 0.5) if state else None
+    return dt, Bt, Ct, xs, A, h0
+
+
 def phase_lm_kernels(dev) -> dict:
     """rwkv6_wkv and flash_attention against their plain versions at the LM
     path's shapes: WKV at RWKV-6 3B's 40 heads of 64 (a 512-token prefill
     from zero, a decode step and an odd 37-step run from a nonzero state;
     y and the final state at 3e-4), flash at Qwen3-4B's 32/8 heads of 128
     (S = 16, 37, 512, 4096; bf16 at 2e-2, fp32 at 2e-3; one non-causal
-    case)."""
+    case); mamba_scan at Jamba's d_inner 8192 and 16 states (a 512-token
+    prefill from zero and from a nonzero state, a decode step and an odd
+    37-step run from a state; y and the final state at 3e-4)."""
     import torch
 
     from repro_torch.kernels import ref
@@ -1257,6 +1294,7 @@ def phase_lm_kernels(dev) -> dict:
         flash_attention_cuda,
         flash_attention_plain,
     )
+    from repro_torch.kernels.mamba_scan import mamba_scan_cuda
     from repro_torch.kernels.rwkv6_wkv import rwkv6_wkv_cuda
 
     wkv_err = 0.0
@@ -1284,9 +1322,18 @@ def phase_lm_kernels(dev) -> dict:
         flash_attention_cuda(q, k, v, causal=False),
         flash_attention_plain(q, k, v, causal=False), 2e-3,
         "flash_attention non-causal")
+    scan_err = 0.0
+    for T, state in ((512, False), (512, True), (1, True), (37, True)):
+        args = _scan_inputs(dev, T, T + int(state), state)
+        y, h = mamba_scan_cuda(*args)
+        want_y, want_h = ref.mamba_scan(*args)
+        label = f"mamba_scan T={T}{' from h0' if state else ''}"
+        scan_err = max(scan_err,
+                       _close(y, want_y, LM_SCAN_TOL, f"{label} y"),
+                       _close(h, want_h, LM_SCAN_TOL, f"{label} h_fin"))
     log(f"lm kernels: rwkv6_wkv max |d| {wkv_err:.3e}; flash_attention "
-        f"{flash_err}")
-    return {"wkv_err": wkv_err, "flash_err": flash_err}
+        f"{flash_err}; mamba_scan {scan_err:.3e}")
+    return {"wkv_err": wkv_err, "flash_err": flash_err, "scan_err": scan_err}
 
 
 def wkv_timing(dev, T: int, state: bool, reps: int) -> dict:
@@ -1306,6 +1353,26 @@ def wkv_timing(dev, T: int, state: bool, reps: int) -> dict:
     return {"shape": [1, T, H, dh], "state": state, "ms": ms,
             "plain_ms": plain_ms, "library_ms": None,
             **_bound(6.0 * T * H * dh * dh, nbytes, PEAK_FP32_S)}
+
+
+def scan_timing(dev, T: int, state: bool, reps: int) -> dict:
+    """Kernel and plain times of mamba_scan at B=1, Jamba's d_inner and
+    d_state (no single PyTorch call computes a selective scan)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mamba_scan import mamba_scan_cuda
+
+    d, n = LM_SCAN_D, LM_SCAN_N
+    args = _scan_inputs(dev, T, 7, state)
+    ms = time_ms(lambda: mamba_scan_cuda(*args), reps)
+    plain_ms = time_ms(lambda: ref.mamba_scan(*args), max(2, reps // 20))
+    # dt, x and y; B_t and C_t; A; h_fin (and h0)
+    nbytes = 4 * (3 * T * d + 2 * T * n + (2 if state else 1) * d * n
+                  + d * n)
+    # per step, channel and state: dt*A, dA*h, (dt x)*B, the add and the
+    # FMA of y (an exp besides, on the SFUs): 6 flops at the fp32 peak
+    return {"shape": [1, T, d, n], "state": state, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": None,
+            **_bound(6.0 * T * d * n, nbytes, PEAK_FP32_S)}
 
 
 def flash_timing(dev, S: int, dtype, reps: int) -> dict:
@@ -1345,6 +1412,27 @@ def _decode_bytes(cparams) -> int:
         tok = cparams["embed"]["tok"]
         total -= (tok.shape[0] - 1) * tok.shape[1] * tok.element_size()
     return total
+
+
+def _decode_flops(cparams, cfg) -> float:
+    """Operations of one decode token's weight products: two a weight (no
+    embedding lookup), but two a weight and capacity slot for the MoE
+    experts, which the dense dispatch runs over every slot for one token;
+    the attention over the cache and the elementwise work are left out."""
+    from repro_torch.nn.model import tree_leaves
+    from repro_torch.nn.moe import expert_capacity
+
+    n = sum(t.numel() for k, v in cparams.items() if k != "embed"
+            for t in tree_leaves(v))
+    if cfg.tie_embeddings:
+        n += cparams["embed"]["tok"].numel()
+    flops = 2.0 * n
+    if cfg.moe is not None:
+        expert = sum(layer["moe"][w].numel() for unit in cparams["blocks"]
+                     for layer in unit.values() if "moe" in layer
+                     for w in ("w1", "w2", "w3") if w in layer["moe"])
+        flops += 2.0 * (expert_capacity(cfg.moe) - 1) * expert
+    return flops
 
 
 def lm_profile(dev, engine, cfg, max_seq: int) -> dict:
@@ -1398,7 +1486,8 @@ def lm_profile(dev, engine, cfg, max_seq: int) -> dict:
 
 
 def _mixer_layers(cfg, kind: str) -> int:
-    """Layers of the model whose mixer is ``kind`` (``rwkv``/``attn``)."""
+    """Layers of the model whose mixer is ``kind`` (``rwkv``, ``attn`` or
+    ``mamba``)."""
     from repro_torch.nn.blocks import layer_plan, scan_length
 
     return scan_length(cfg) * sum(m == kind for m, _ in layer_plan(cfg))
@@ -1406,47 +1495,67 @@ def _mixer_layers(cfg, kind: str) -> int:
 
 def _no_plain_on_card(platform, label: str) -> dict:
     plain = platform.plain_on_cuda_counts()
-    for name in ("rwkv6_wkv", "flash_attention"):
+    for name in ("rwkv6_wkv", "flash_attention", "mamba_scan"):
         if plain.get(name, 0):
             fail(f"{label}: the plain {name} ran {plain[name]} times on a "
                  f"CUDA tensor")
     return plain
 
 
-def lm_serve(dev, arch: str) -> dict:
-    """One model at full width and depth, weights random from seed 0.
+def _free() -> None:
+    """Hand the memory of dropped tensors back to the card."""
+    import gc
 
-    First, in fp32 compute, against the full-sequence forward over 17
-    tokens: 16 decode steps from an empty cache, and one decode step from
-    the cache of a 16-token prefill (the hand-off of the KV cache or the
-    WKV state), each at ``LM_FP32_TOL``.  Then ``ServeEngine`` in the
-    model's bf16 compute: 4 slots, 8 requests with prompts cycling over
-    16/64/256/512 tokens, 32 new tokens each, greedy; prefill and decode
-    calls timed (each ends in a device sync).  The launch counts are those
-    of ``engine.run`` alone, and must be one per mixer layer and call."""
-    import numpy as np
     import torch
 
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import platform
-    from repro_torch.nn import (
-        decode_step,
-        forward,
-        init_cache,
-        init_params,
-        prefill,
-    )
-    from repro_torch.nn.model import tree_leaves
-    from repro_torch.serving import Request, ServeEngine
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    cfg = get_config(arch)
+
+def _instance(dev, cfg):
+    """``init_params`` of ``cfg`` on the card, seed 0: (params, parameter
+    count, seconds)."""
+    from repro_torch.nn import init_params
+    from repro_torch.nn.model import tree_leaves
+
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device=dev)
     _sync(dev)
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in tree_leaves(params))
-    log(f"{arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{n_params / 1e9:.3f} B parameters in {init_s:.1f} s")
+    log(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.param_dtype} parameters, {n_params / 1e9:.3f} B in "
+        f"{init_s:.1f} s")
+    return params, n_params, init_s
+
+
+def lm_serve(dev, arch: str) -> dict:
+    """One model at full width, weights random from seed 0; the depth and
+    parameter dtype of its fp32 check and of its served instance as
+    ``LM_CUTS`` sets them (full depth, fp32 parameters when it does not).
+
+    First, in fp32 compute, against the full-sequence forward over 17
+    tokens: 16 decode steps from an empty cache, and one decode step from
+    the cache of a 16-token prefill (the hand-off of the KV cache, the WKV
+    state or the Mamba state, conv window and MoE loads), each at
+    ``LM_FP32_TOL``.  Then ``ServeEngine`` in the model's bf16 compute: 4
+    slots, 8 requests with prompts cycling over 16/64/256/512 tokens, 32
+    new tokens each, greedy; prefill and decode calls timed (each ends in a
+    device sync).  The launch counts are those of ``engine.run`` alone, and
+    must be one per mixer layer and call."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import platform
+    from repro_torch.nn import decode_step, forward, init_cache, prefill
+    from repro_torch.nn.model import tree_leaves
+    from repro_torch.serving import Request, ServeEngine
+
+    check_cut, serve_cut = LM_CUTS.get(arch, ({}, None))
+    cfg = get_config(arch).replace(**check_cut)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params, n_check, init_s = _instance(dev, cfg)
 
     cfg32 = cfg.replace(compute_dtype="float32")
     n = LM_CHECK_LEN
@@ -1465,10 +1574,19 @@ def lm_serve(dev, arch: str) -> dict:
                        max_seq=n + 4)
     lg, _ = decode_step(params, cfg32, cache, {"tokens": toks[:, n:]}, n)
     check = {"decode": dec, "decode_after_prefill": _close(
-        lg, full[:, n], LM_FP32_TOL, f"{arch} fp32 decode after prefill")}
+        lg, full[:, n], LM_FP32_TOL, f"{arch} fp32 decode after prefill"),
+        "layers": cfg.n_layers, "params_b": n_check / 1e9,
+        "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
     del full, cache, lg
     log(f"{arch}: fp32 decode vs forward max |d| {check}")
     _no_plain_on_card(platform, f"{arch} fp32 check")
+    n_params = n_check
+    if serve_cut is not None:  # free the check's instance, build another
+        del params
+        _free()
+        cfg = get_config(arch).replace(**serve_cut)
+        torch.cuda.reset_peak_memory_stats(dev)
+        params, n_params, init_s = _instance(dev, cfg)
 
     max_seq = max(LM_PROMPTS) + LM_MAX_NEW + 8
     engine = ServeEngine(params, cfg, batch=LM_SLOTS, max_seq=max_seq,
@@ -1506,8 +1624,9 @@ def lm_serve(dev, arch: str) -> dict:
     log(f"{arch} ServeEngine.run launches: {launches}; plain versions on "
         f"the card: {plain}")
     n_prefill = sum(len(v) for v in prefill_s.values())
-    want = {"rwkv6_wkv": _mixer_layers(cfg, "rwkv")
-            * (n_prefill + len(decode_s)),
+    calls = n_prefill + len(decode_s)
+    want = {"rwkv6_wkv": _mixer_layers(cfg, "rwkv") * calls,
+            "mamba_scan": _mixer_layers(cfg, "mamba") * calls,
             "flash_attention": _mixer_layers(cfg, "attn") * n_prefill}
     for name, n_want in want.items():
         if launches.get(name, 0) != n_want:
@@ -1526,8 +1645,10 @@ def lm_serve(dev, arch: str) -> dict:
                 fail(f"{arch}: {name} hold a tensor on {t.device}")
     tokens = sum(len(r.out) for r in reqs)
     decode_bytes = _decode_bytes(engine.cparams)
+    decode_flops = _decode_flops(engine.cparams, cfg)
     prof = lm_profile(dev, engine, cfg, max_seq)
     out = {"layers": cfg.n_layers, "d_model": cfg.d_model,
+           "param_dtype": cfg.param_dtype,
            "params_b": n_params / 1e9, "init_s": init_s,
            "launches": launches,
            "fp32_check_err": check, "requests": len(reqs),
@@ -1536,25 +1657,29 @@ def lm_serve(dev, arch: str) -> dict:
            "decode_ms_median": float(np.median(decode_s)) * 1e3,
            "decode_ms_p90": float(np.percentile(decode_s, 90)) * 1e3,
            "decode_bound_ms": decode_bytes / PEAK_BYTES_S * 1e3,
+           "decode_ops_bound_ms": decode_flops / PEAK_BF16_S * 1e3,
            "prefill_ms": {n: float(np.median(v)) * 1e3
                           for n, v in sorted(prefill_s.items())},
            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
            "profile": prof}
     log(f"{arch} serving: {out}")
     del engine, params
-    torch.cuda.empty_cache()
+    _free()
     return out
 
 
 def phase_lm(dev) -> dict:
-    """The LM serving phase: the two kernels against their plain versions
-    and timed, then RWKV-6 3B and Qwen3-4B through ``ServeEngine``, each
-    with the launch counts of its own ``ServeEngine.run``."""
+    """The LM serving phase: the three kernels against their plain versions
+    and timed, then RWKV-6 3B, Qwen3-4B, Jamba and qwen2-moe through
+    ``ServeEngine``, each with the launch counts of its own
+    ``ServeEngine.run``."""
     import torch
 
     chk = phase_lm_kernels(dev)
     timing = {"wkv_prefill": wkv_timing(dev, 512, False, 50),
               "wkv_decode": wkv_timing(dev, 1, True, 200),
+              "scan_prefill": scan_timing(dev, 512, False, 50),
+              "scan_decode": scan_timing(dev, 1, True, 200),
               "flash": {f"{dt}_{S}": flash_timing(dev, S, getattr(torch, dt),
                                                   20 if S > 512 else 100)
                         for dt in ("bfloat16", "float32")
@@ -1562,14 +1687,16 @@ def phase_lm(dev) -> dict:
     log(f"lm kernel timing: {timing}")
     models, launches = {}, {}
     for arch in LM_ARCHS:
-        torch.cuda.reset_peak_memory_stats(dev)
         models[arch] = lm_serve(dev, arch)
         launches[arch] = models[arch]["launches"]
-    if launches["rwkv6-3b"].get("rwkv6_wkv", 0) <= 0:
-        fail("kernel rwkv6_wkv was not launched on the RWKV-6 serving path")
-    if launches["qwen3-4b"].get("flash_attention", 0) <= 0:
-        fail("kernel flash_attention was not launched on the Qwen3-4B "
-             "serving path")
+    for arch, name in (("rwkv6-3b", "rwkv6_wkv"),
+                       ("qwen3-4b", "flash_attention"),
+                       ("jamba-v0.1-52b", "mamba_scan"),
+                       ("jamba-v0.1-52b", "flash_attention"),
+                       ("qwen2-moe-a2.7b", "flash_attention")):
+        if launches[arch].get(name, 0) <= 0:
+            fail(f"kernel {name} was not launched on the {arch} serving "
+                 f"path")
     return {"check": chk, "timing": timing, "models": models,
             "launches": launches}
 
@@ -1721,6 +1848,14 @@ def main() -> int:
          **{k: lm["timing"]["flash"]["bfloat16_512"][k]
             for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                       "library_ms")}},
+        {"name": "mamba_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
+         "replaces": "src/repro/kernels/mamba_scan.py:26",
+         "launches": lm["launches"]["jamba-v0.1-52b"]["mamba_scan"],
+         "max_abs_err": lm["check"]["scan_err"],
+         **{k: lm["timing"]["scan_prefill"][k]
+            for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                      "library_ms")}},
     ]
     summary = {"single_task": {k: v for k, v in single.items()
                                if k != "stats"},
@@ -1767,10 +1902,11 @@ def main() -> int:
         "mlp_forward_ms": {"gate_rows": m_gate["ms"], "4096": m_big["ms"]}}}),
         flush=True)
     print(json.dumps({"lm_serving": {
-        arch: {**{k: m[k] for k in ("layers", "d_model", "tokens",
+        arch: {**{k: m[k] for k in ("layers", "param_dtype", "tokens",
                                     "tokens_per_s", "decode_ms_median",
-                                    "decode_bound_ms", "prefill_ms",
-                                    "fp32_check_err")},
+                                    "decode_ms_p90", "decode_bound_ms",
+                                    "decode_ops_bound_ms", "prefill_ms",
+                                    "peak_mem_gb", "fp32_check_err")},
                "idle_share": {k: v["idle_share"]
                               for k, v in m["profile"].items()}}
         for arch, m in lm["models"].items()}}), flush=True)

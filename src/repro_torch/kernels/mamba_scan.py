@@ -1,0 +1,103 @@
+"""Mamba / S6 selective scan — the recurrence of every Mamba mixer of Jamba.
+
+Every Mamba layer runs it: a prefill over the prompt from a zero state,
+and every decoded token as one step from the cached state.  The CUDA kernel
+in ``csrc/mamba_scan.cu`` keeps each channel's ``(n,)`` state in the
+registers of four lanes for the whole sequence and reads B_t/C_t as the
+column slices of the x projection that the layer hands it; its header gives
+the design and the bound.
+
+:func:`mamba_scan` routes on the device of its inputs: CUDA tensors launch
+the kernel (:func:`mamba_scan_cuda`), CPU tensors take the plain version
+(``kernels.ref.mamba_scan``, the sequential loop).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import native, ref
+from .platform import LAUNCHES, use_kernel
+
+MAX_STATE = 64  # four lanes of at most 16 states each
+
+
+def _check(dt, Bt, Ct, xs, A, h0) -> tuple[int, int, int, int]:
+    """``(B, T, d, n)`` of a valid launch; raises on what the kernel does
+    not take."""
+    if xs.ndim != 3:
+        raise ValueError(f"xs: expected (B, T, d), got {tuple(xs.shape)}")
+    B, T, d = xs.shape
+    if dt.shape != xs.shape:
+        raise ValueError(f"dt: expected {tuple(xs.shape)}, got "
+                         f"{tuple(dt.shape)}")
+    if A.ndim != 2 or A.shape[0] != d:
+        raise ValueError(f"A: expected ({d}, n), got {tuple(A.shape)}")
+    n = A.shape[1]
+    for name, t in (("Bt", Bt), ("Ct", Ct)):
+        if t.shape != (B, T, n):
+            raise ValueError(f"{name}: expected {(B, T, n)}, got "
+                             f"{tuple(t.shape)}")
+    if h0 is not None and h0.shape != (B, d, n):
+        raise ValueError(f"h0: expected {(B, d, n)}, got "
+                         f"{tuple(h0.shape)}")
+    for name, t in (("dt", dt), ("Bt", Bt), ("Ct", Ct), ("xs", xs),
+                    ("A", A), ("h0", h0)):
+        if t is None:
+            continue
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name}: expected float32, got {t.dtype}")
+        if t.device != xs.device:
+            raise ValueError(f"{name} on {t.device}, xs on {xs.device}")
+    if not 1 <= n <= MAX_STATE:
+        raise ValueError(f"mamba_scan: state size {n} not in 1..{MAX_STATE}")
+    return B, T, d, n
+
+
+def _unit_last(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when its last dimension is contiguous, else a copy."""
+    return t if t.stride(-1) == 1 else t.contiguous()
+
+
+def mamba_scan_cuda(dt, Bt, Ct, xs, A, h0=None):
+    """One launch of the kernel on a Hopper card: ``(y (B, T, d), h_final
+    (B, d, n))``, float32.  dt/xs/Bt/Ct are read through their strides (a
+    copy only when the last dimension is not contiguous).  Raises on a bad
+    input or a refused launch."""
+    B, T, d, n = _check(dt, Bt, Ct, xs, A, h0)
+    dt, Bt, Ct, xs = (_unit_last(t) for t in (dt, Bt, Ct, xs))
+    A = A.contiguous()
+    if h0 is not None:
+        h0 = h0.contiguous()
+    y = torch.empty((B, T, d), dtype=torch.float32, device=xs.device)
+    h_out = torch.empty((B, d, n), dtype=torch.float32, device=xs.device)
+    if B * d == 0:
+        return y, h_out
+    if T == 0:
+        if h0 is None:
+            return y, h_out.zero_()
+        return y, h_out.copy_(h0)
+    strides = (ctypes.c_longlong * 8)(
+        *[s for t in (dt, xs, Bt, Ct) for s in t.stride()[:2]])
+    lib = native.library()
+    with torch.cuda.device(xs.device):
+        stream = torch.cuda.current_stream(xs.device).cuda_stream
+        err = lib.mamba_scan(
+            dt.data_ptr(), xs.data_ptr(), Bt.data_ptr(), Ct.data_ptr(),
+            ctypes.addressof(strides), A.data_ptr(),
+            h0.data_ptr() if h0 is not None else None, B, T, d, n,
+            y.data_ptr(), h_out.data_ptr(), stream)
+    native.check(err, "mamba_scan launch")
+    LAUNCHES["mamba_scan"] += 1
+    return y, h_out
+
+
+def mamba_scan(dt, Bt, Ct, xs, A, h0=None):
+    """dt/xs: ``(B, T, d)`` float32; Bt/Ct: ``(B, T, n)``; A: ``(d, n)``;
+    h0: ``(B, d, n)`` or None (zeros) -> ``(y, h_final)``.  The kernel on
+    CUDA tensors, the plain sequential loop on CPU tensors."""
+    if use_kernel(xs):
+        return mamba_scan_cuda(dt, Bt, Ct, xs, A, h0)
+    return ref.mamba_scan(dt, Bt, Ct, xs, A, h0)

@@ -23,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
 SOURCES = ("pareto_filter.cu", "mogd_descend.cu", "compose.cu", "mogd_mlp.cu",
-           "rwkv6_wkv.cu", "flash_attention.cu")
+           "rwkv6_wkv.cu", "flash_attention.cu", "mamba_scan.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # No --use_fast_math: expf/cosf/powf/sqrtf and division stay IEEE, and
 # -fmad=false keeps elementwise a*b+c rounded twice, as PyTorch's separate
@@ -146,6 +146,10 @@ def library() -> ctypes.CDLL:
                 _VP, _VP, _VP, _VP,  # q k v o
                 _I, _I, _I, _I, _I, _I, _F, _I, _VP]  # B S H Hk dh bf16 ...
             lib.flash_attention_fwd.restype = _I
+            lib.mamba_scan.argtypes = [
+                _VP, _VP, _VP, _VP, _VP, _VP, _VP,  # dt x B C strides A h0
+                _I, _I, _I, _I, _VP, _VP, _VP]  # B T d n, y, h_out, stream
+            lib.mamba_scan.restype = _I
             lib.mogd_plan_bytes.argtypes = []
             lib.mogd_plan_bytes.restype = _I
             lib.repro_cuda_error_string.argtypes = [_I]

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from .flash_attention import flash_attention as _flash_attention
+from .mamba_scan import mamba_scan
 from .mogd_mlp import mlp_forward_fused
 from .pareto_filter import cross_dominator_counts, pareto_counts_blocked
 from .rwkv6_wkv import rwkv6_wkv
@@ -51,3 +52,12 @@ def rwkv_wkv(r, k, v, w, u, S0=None):
     f32 = lambda t: t.to(torch.float32)  # noqa: E731
     return rwkv6_wkv(f32(r), f32(k), f32(v), f32(w), f32(u),
                      None if S0 is None else f32(S0))
+
+
+def mamba_selective_scan(dt, Bt, Ct, xs, A, h0=None):
+    """dt/xs: (B, T, d); Bt/Ct: (B, T, n); A: (d, n); h0: (B, d, n) or
+    None.  Returns (y (B, T, d), h_final (B, d, n)) in float32: any T, from
+    the given state (decode is T = 1 from the cached one)."""
+    f32 = lambda t: t.to(torch.float32)  # noqa: E731
+    return mamba_scan(f32(dt), f32(Bt), f32(Ct), f32(xs), f32(A),
+                      None if h0 is None else f32(h0))

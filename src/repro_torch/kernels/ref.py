@@ -160,3 +160,26 @@ def rwkv6_wkv(r, k, v, w, u, S0=None):
     y = (torch.stack(ys, dim=1) if ys else
          torch.zeros((B, 0, H, dh), dtype=torch.float32, device=r.device))
     return y, S
+
+
+def mamba_scan(dt, Bt, Ct, xs, A, h0=None):
+    """dt/xs: (B, T, d) fp32; Bt/Ct: (B, T, n); A: (d, n); h0: (B, d, n)
+    or None (zeros).  Returns (y (B, T, d), h_final (B, d, n)).
+
+    h_t = exp(dt_t A) * h_{t-1} + (dt_t x_t) B_t;  y_t = h_t . C_t — the
+    sequential loop, one step at a time.  The plain version of
+    ``csrc/mamba_scan.cu``: a call on a CUDA tensor is counted in
+    ``platform.PLAIN_ON_CUDA``."""
+    if xs.device.type == "cuda":
+        PLAIN_ON_CUDA["mamba_scan"] += 1
+    B, T, d = xs.shape
+    h = (torch.zeros((B, d, A.shape[1]), dtype=torch.float32,
+                     device=xs.device) if h0 is None else h0)
+    ys = []
+    for t in range(T):
+        dA = torch.exp(dt[:, t, :, None] * A[None])
+        h = dA * h + (dt[:, t] * xs[:, t])[..., None] * Bt[:, t, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", h, Ct[:, t]))
+    y = (torch.stack(ys, dim=1) if ys else
+         torch.zeros((B, 0, d), dtype=torch.float32, device=xs.device))
+    return y, h

@@ -1,7 +1,6 @@
-"""Model substrate: GQA attention (RoPE, qk-norm), RWKV-6 (Finch), norms,
-blocks over a loop of layers, and the LM assembly with its prefill and
-decode entry points.  Mamba and MoE blocks come with a later slice
-(``nn.blocks.UNPORTED``).
+"""Model substrate: GQA attention (RoPE, qk-norm), RWKV-6 (Finch), Mamba
+(S6), MoE FFNs, norms, blocks over a loop of layers, and the LM assembly
+with its prefill and decode entry points, for all ten architectures.
 
 Parameters are nested dicts of tensors; ``nn.convert`` carries the JAX
 package's parameters and caches across.

@@ -1,17 +1,17 @@
 """Decoder blocks and the loop over layers.
 
-Block kinds ported so far:
+Three block kinds cover all ten architectures, as in the reference:
 
-* ``attn``  — pre-norm GQA attention + MLP             [dense/vlm/audio]
-* ``rwkv``  — RWKV-6 time mix + channel mix            [ssm]
+* ``attn``  — pre-norm GQA attention + (MLP | MoE)        [dense/moe/vlm/audio]
+* ``rwkv``  — RWKV-6 time mix + channel mix               [ssm]
+* hybrid superblock — Jamba's 8-layer repeating pattern
+  (Mamba ×7 + attention ×1, MoE every other layer)        [hybrid]
 
-Mamba mixers and MoE FFNs (Jamba, qwen2-moe, grok-1) raise
-``NotImplementedError``: they come with the Jamba slice (ROADMAP Queue 2
-item 7, ``nn/{mamba,moe}``).  Parameters and caches are lists over scan
-units (``scan_length(cfg)`` of them), each a dict ``{"l0": ..., }`` over
-the unit's layer plan — the reference's stacked leaves, one list entry per
-leading index (``nn.convert`` maps one onto the other).  A plain Python
-loop over the units replaces ``lax.scan``; remat belongs to training.
+Parameters and caches are lists over scan units (``scan_length(cfg)`` of
+them), each a dict ``{"l0": ..., }`` over the unit's layer plan — the
+reference's stacked leaves, one list entry per leading index
+(``nn.convert`` maps one onto the other).  A plain Python loop over the
+units replaces ``lax.scan``; remat belongs to training.
 """
 
 from __future__ import annotations
@@ -23,19 +23,14 @@ import torch
 from .attention import attention, attn_init, decode_attention, init_layer_cache
 from .config import ArchConfig
 from .layers import mlp, mlp_init, rmsnorm, rmsnorm_init
+from .mamba import mamba, mamba_init
+from .moe import moe, moe_init
 from .rwkv import (
     rwkv_channel_mix,
     rwkv_channel_mix_init,
     rwkv_time_mix,
     rwkv_time_mix_init,
 )
-
-UNPORTED = {
-    "mamba": "Mamba mixers come with the Jamba slice (ROADMAP Queue 2 item "
-             "7: nn/mamba.py and the mamba_scan kernel)",
-    "moe": "MoE FFNs (qwen2-moe, grok-1, Jamba) come with the Jamba slice "
-           "(ROADMAP Queue 1 item 16: nn/moe.py, keeping the capacity fix)",
-}
 
 
 # ---------------------------------------------------------------------------
@@ -71,17 +66,6 @@ def scan_length(cfg: ArchConfig) -> int:
     return cfg.n_layers // n_unit
 
 
-def check_ported(cfg: ArchConfig) -> list[tuple[str, str]]:
-    """The layer plan, or ``NotImplementedError`` naming the slice that
-    brings a kind this port does not run yet."""
-    plan = layer_plan(cfg)
-    for mixer, ffn in plan:
-        for kind in (mixer, ffn):
-            if kind in UNPORTED:
-                raise NotImplementedError(f"{cfg.name}: {UNPORTED[kind]}")
-    return plan
-
-
 # ---------------------------------------------------------------------------
 # Single layer
 # ---------------------------------------------------------------------------
@@ -93,6 +77,8 @@ def _layer_init(gen: torch.Generator, cfg: ArchConfig, mixer: str,
     p: dict[str, Any] = {"norm1": rmsnorm_init(gen, cfg.d_model, dt)}
     if mixer == "attn":
         p["attn"] = attn_init(gen, cfg)
+    elif mixer == "mamba":
+        p["mamba"] = mamba_init(gen, cfg, cfg.hybrid.mamba)
     elif mixer == "rwkv":
         p["time_mix"] = rwkv_time_mix_init(gen, cfg, cfg.rwkv)
     else:
@@ -100,6 +86,8 @@ def _layer_init(gen: torch.Generator, cfg: ArchConfig, mixer: str,
     p["norm2"] = rmsnorm_init(gen, cfg.d_model, dt)
     if ffn == "mlp":
         p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.activation, dt)
+    elif ffn == "moe":
+        p["moe"] = moe_init(gen, cfg, cfg.moe)
     elif ffn == "rwkv_cm":
         p["channel_mix"] = rwkv_channel_mix_init(gen, cfg)
     else:
@@ -107,18 +95,30 @@ def _layer_init(gen: torch.Generator, cfg: ArchConfig, mixer: str,
     return p
 
 
-def _layer_cache_init(cfg: ArchConfig, mixer: str, batch: int, max_seq: int,
-                      device) -> dict:
+def _layer_cache_init(cfg: ArchConfig, mixer: str, ffn: str, batch: int,
+                      max_seq: int, device) -> dict:
     """Per-layer decode cache."""
+    zeros = lambda s, d: torch.zeros(s, dtype=d, device=device)  # noqa: E731
+    extra = {}
+    if ffn == "moe":
+        # per-expert loads of the current dispatch chunk: incremental decode
+        # reproduces the full pass's capacity drops (see nn/moe.py)
+        extra["moe_counts"] = zeros((batch, cfg.moe.num_experts),
+                                    torch.int32)
     if mixer == "attn":
-        return init_layer_cache(cfg, batch, max_seq, device)
+        return {**init_layer_cache(cfg, batch, max_seq, device), **extra}
+    if mixer == "mamba":
+        m = cfg.hybrid.mamba
+        din = m.expand * cfg.d_model
+        return {"h": zeros((batch, din, m.d_state), torch.float32),
+                "conv": zeros((batch, m.d_conv - 1, din), cfg.cdtype()),
+                **extra}
     if mixer == "rwkv":
         r = cfg.rwkv
         H, dh = cfg.d_model // r.head_size, r.head_size
-        zeros = lambda s, d: torch.zeros(s, dtype=d, device=device)  # noqa: E731
         return {"S": zeros((batch, H, dh, dh), torch.float32),
                 "x_tm": zeros((batch, cfg.d_model), cfg.cdtype()),
-                "x_cm": zeros((batch, cfg.d_model), cfg.cdtype())}
+                "x_cm": zeros((batch, cfg.d_model), cfg.cdtype()), **extra}
     raise ValueError(mixer)
 
 
@@ -133,6 +133,11 @@ def _apply_mixer(p, cfg: ArchConfig, mixer: str, x, mode, cache, pos,
                                   max_seq=max_seq)
             return y, {"k": k, "v": v}
         return attention(p["attn"], cfg, x), None
+    if mixer == "mamba":
+        st = (cache["h"], cache["conv"]) if cache is not None else None
+        y, (h, conv) = mamba(p["mamba"], cfg, cfg.hybrid.mamba, x, st)
+        new = {"h": h, "conv": conv} if mode != "train" else None
+        return y, new
     if mixer == "rwkv":
         st = (cache["S"], cache["x_tm"]) if cache is not None else None
         y, (S, x_tm) = rwkv_time_mix(p["time_mix"], cfg, cfg.rwkv, x, st)
@@ -141,10 +146,18 @@ def _apply_mixer(p, cfg: ArchConfig, mixer: str, x, mode, cache, pos,
     raise ValueError(mixer)
 
 
-def _apply_ffn(p, cfg: ArchConfig, ffn: str, x, mode, cache):
+def _apply_ffn(p, cfg: ArchConfig, ffn: str, x, mode, cache, pos):
     """Returns (y, extra_cache_updates or {})."""
     if ffn == "mlp":
         return mlp(p["mlp"], x, cfg.activation), {}
+    if ffn == "moe":
+        if mode == "train":
+            return moe(p["moe"], cfg, cfg.moe, x), {}
+        counts = (cache.get("moe_counts")
+                  if mode == "decode" and cache is not None else None)
+        y, new_counts = moe(p["moe"], cfg, cfg.moe, x, counts=counts,
+                            pos=pos, return_counts=True)
+        return y, {"moe_counts": new_counts}
     if ffn == "rwkv_cm":
         prev = cache.get("x_cm") if cache is not None else None
         y, x_cm = rwkv_channel_mix(p["channel_mix"], cfg, x, prev)
@@ -160,7 +173,8 @@ def layer_apply(p, cfg: ArchConfig, mixer: str, ffn: str, x, mode, cache,
         pos, max_seq)
     x = x + h
     h, cm_cache = _apply_ffn(
-        p, cfg, ffn, rmsnorm(p["norm2"], x, cfg.norm_eps), mode, cache)
+        p, cfg, ffn, rmsnorm(p["norm2"], x, cfg.norm_eps), mode, cache,
+        pos)
     x = x + h
     if new_cache is not None and cm_cache:
         new_cache = {**new_cache, **cm_cache}
@@ -175,7 +189,7 @@ def layer_apply(p, cfg: ArchConfig, mixer: str, ffn: str, x, mode, cache,
 
 
 def blocks_init(gen: torch.Generator, cfg: ArchConfig) -> list:
-    plan = check_ported(cfg)
+    plan = layer_plan(cfg)
     return [{f"l{i}": _layer_init(gen, cfg, mixer, ffn)
              for i, (mixer, ffn) in enumerate(plan)}
             for _ in range(scan_length(cfg))]
@@ -183,9 +197,10 @@ def blocks_init(gen: torch.Generator, cfg: ArchConfig) -> list:
 
 def blocks_cache_init(cfg: ArchConfig, batch: int, max_seq: int,
                       device) -> list:
-    plan = check_ported(cfg)
-    return [{f"l{i}": _layer_cache_init(cfg, mixer, batch, max_seq, device)
-             for i, (mixer, _) in enumerate(plan)}
+    plan = layer_plan(cfg)
+    return [{f"l{i}": _layer_cache_init(cfg, mixer, ffn, batch, max_seq,
+                                        device)
+             for i, (mixer, ffn) in enumerate(plan)}
             for _ in range(scan_length(cfg))]
 
 

@@ -4,8 +4,8 @@ The reference's ``init_params`` and ``init_cache`` give value trees whose
 ``blocks`` leaves are stacked over scan units (a leading dimension of
 ``scan_length(cfg)``).  Exported with ``np.asarray`` they arrive here as
 nested dicts of numpy arrays; these functions turn them into the port's
-layout (``blocks`` a list over units) on a device; caches go back the
-other way for comparison.  Nothing here
+layout (``blocks`` a list over units) on a device, integer leaves in their
+own type; caches go back the other way for comparison.  Nothing here
 imports the JAX package: the caller does the export.  bfloat16 arrays (the
 ``ml_dtypes`` type numpy holds them in) pass through float32, which is
 exact.
@@ -51,10 +51,15 @@ def params_from_numpy(tree: dict, device=None) -> dict:
 
 
 def cache_to_numpy(cache: list) -> dict:
-    """The port's cache list -> the reference's stacked layout, as float32
-    numpy arrays (bfloat16 widened exactly)."""
+    """The port's cache list -> the reference's stacked layout, as numpy
+    arrays: floating leaves as float32 (bfloat16 widened exactly), integer
+    leaves (the MoE layers' ``moe_counts``) in their own type."""
+    def host(t):
+        t = t.detach().cpu()
+        return (t.float() if t.is_floating_point() else t).numpy()
+
     def stack(*leaves):
-        return np.stack([t.detach().float().cpu().numpy() for t in leaves])
+        return np.stack([host(t) for t in leaves])
 
     def merge(trees):
         first = trees[0]

@@ -14,7 +14,7 @@ import torch
 
 from ..exec import tree_map
 from ..kernels.platform import resolve_device
-from .blocks import blocks_apply, blocks_cache_init, blocks_init, check_ported
+from .blocks import blocks_apply, blocks_cache_init, blocks_init
 from .config import ArchConfig
 from .layers import (
     embed,
@@ -33,7 +33,6 @@ from .layers import (
 def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
     """Random parameters at ``cfg``'s shapes, drawn in the reference's order
     from one ``torch.Generator`` seeded with ``seed`` on ``device``."""
-    check_ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dt = cfg.pdtype()

@@ -1,0 +1,196 @@
+"""Mixture-of-Experts with GShard-style dense dispatch.
+
+Top-k routing with capacity, as the reference computes it:
+
+    router logits (fp32) -> top-k gates -> capacity-limited position-in-
+    expert via causal cumulative sum -> dispatch one-hot (g, s, E, C) ->
+    expert_in = einsum(dispatch, x) -> per-expert FFN -> combine.
+
+``impl="gather"`` replaces the two dispatch/combine einsums with index
+scatters and gathers (same capacity semantics).  The expert products are
+batched matrix products (``torch.einsum``), as the reference leaves them
+to XLA.
+
+Capacity semantics (decode/prefill parity), kept from the reference:
+
+* **Token-major serialization** — a token's slot in an expert depends only
+  on *earlier* tokens' loads.
+* **Config-static capacity** — capacity derives from ``group_size``, never
+  from the runtime group length, so a 1-token decode step and a full-
+  sequence pass agree on the drop threshold.
+* **Per-row groups** — dispatch groups never span batch rows.
+
+Incremental decode carries per-expert usage ``counts (B, E)`` in the layer
+cache (reset every ``group_size`` tokens — the full pass's chunk boundary)
+and reproduces the full pass's drops exactly.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .config import ArchConfig, MoEConfig
+from .layers import gelu, param, sigmoid, silu
+
+
+def moe_init(gen: torch.Generator, cfg: ArchConfig, m: MoEConfig) -> dict:
+    D, Fe, E = cfg.d_model, m.expert_d_ff, m.num_experts
+    dt = cfg.pdtype()
+    glu = cfg.activation == "swiglu"
+    p = {
+        "router": param(gen, (D, E), dt),
+        "w1": param(gen, (E, D, Fe), dt),
+        "w2": param(gen, (E, Fe, D), dt),
+    }
+    if glu:
+        p["w3"] = param(gen, (E, D, Fe), dt)
+    if m.shared_d_ff:
+        p["shared_w1"] = param(gen, (D, m.shared_d_ff), dt)
+        p["shared_w2"] = param(gen, (m.shared_d_ff, D), dt)
+        if glu:
+            p["shared_w3"] = param(gen, (D, m.shared_d_ff), dt)
+        p["shared_gate"] = param(gen, (D, 1), dt)
+    return p
+
+
+def _top_k_gating(logits: torch.Tensor, m: MoEConfig):
+    """logits: (g, s, E) fp32 -> gates (g, s, E) with exactly top_k nonzero,
+    normalized over the selected experts, and the choices' one-hots (g, s,
+    k, E).  Ties go to the lower expert index, as ``jax.lax.top_k`` breaks
+    them (a stable descending sort; ``torch.topk`` promises no order)."""
+    probs = torch.softmax(logits, dim=-1)
+    topv, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topv, topi = topv[..., :m.top_k], topi[..., :m.top_k]
+    topv = topv / torch.clamp_min(topv.sum(-1, keepdim=True), 1e-9)
+    gates = torch.zeros_like(probs).scatter(-1, topi, topv)
+    oh = torch.nn.functional.one_hot(topi, logits.shape[-1]).to(probs.dtype)
+    return gates, oh
+
+
+def expert_capacity(m: MoEConfig) -> int:
+    """Config-static per-expert capacity: derived from ``group_size`` (not
+    the runtime group length) so a decode step and a full-sequence pass
+    agree on when a token overflows."""
+    cap = int(m.group_size * m.top_k / m.num_experts * m.capacity_factor)
+    return max(8, -(-cap // 8) * 8)  # round up to multiple of 8
+
+
+def _expert_positions(oh: torch.Tensor, base: torch.Tensor | None):
+    """Causal (token-major) position-in-expert.
+
+    ``oh: (g, s, k, E)`` one-hot choices; ``base: (g, E)`` prior loads
+    carried in from a decode cache.  Returns ``(assign (g,s,E), pos
+    (g,s,E), loads (g,E))``, where ``loads`` counts every assignment (kept
+    or dropped)."""
+    assign = oh.sum(dim=2)  # (g, s, E) in {0, 1}
+    pos = torch.cumsum(assign, dim=1) - assign  # exclusive prefix loads
+    if base is not None:
+        pos = pos + base[:, None, :].to(pos.dtype)
+    loads = pos[:, -1] + assign[:, -1]  # (g, E) total after the group
+    return assign, pos, loads
+
+
+def _dispatch_tensors(gates: torch.Tensor, oh: torch.Tensor, capacity: int,
+                      base: torch.Tensor | None = None):
+    """Dense dispatch. Returns combine (g,s,E,C), dispatch (same shape),
+    and the per-group expert loads (g,E)."""
+    assign, pos, loads = _expert_positions(oh, base)
+    keep = (pos < capacity) & (assign > 0)
+    slots = torch.arange(capacity, dtype=pos.dtype, device=pos.device)
+    disp = ((pos[..., None] == slots) & keep[..., None]).to(gates.dtype)
+    comb = gates[..., None] * disp
+    return comb, disp, loads
+
+
+def _gather_dispatch(xt, gates, oh, capacity: int,
+                     base: torch.Tensor | None = None):
+    """Scatter/gather token routing: the kept (token, choice) rows are
+    written to their (expert, slot) and read back, O(s*k*D) where the dense
+    einsums are O(s*E*C*D).  Returns (expert_in (g,E,C,D), combine_fn(eout)
+    -> (g,s,D), loads (g,E))."""
+    g, s, k, E = oh.shape
+    D = xt.shape[-1]
+    _, pos_e, loads = _expert_positions(oh, base)
+    topi = oh.argmax(dim=-1)  # (g, s, k) expert ids
+    pos = torch.gather(pos_e, -1, topi).to(torch.int64)
+    keep = pos < capacity  # (g, s, k)
+    gi, si, ki = keep.nonzero(as_tuple=True)
+    expert_in = torch.zeros((g, E, capacity, D), dtype=xt.dtype,
+                            device=xt.device)
+    expert_in[gi, topi[gi, si, ki], pos[gi, si, ki]] = xt[gi, si]
+    gate_k = torch.gather(gates, -1, topi)  # (g, s, k)
+
+    def combine(eout):
+        gidx = torch.arange(g, device=xt.device)[:, None, None]
+        y_k = eout[gidx, topi, pos.clamp_max(capacity - 1)]  # (g,s,k,D)
+        wk = (gate_k * keep).to(eout.dtype)[..., None]
+        return (y_k * wk).sum(dim=2)
+
+    return expert_in, combine, loads
+
+
+def moe(p: dict, cfg: ArchConfig, m: MoEConfig, x: torch.Tensor,
+        counts: torch.Tensor | None = None, pos: int | None = None,
+        return_counts: bool = False):
+    """x: (B, S, D) -> (B, S, D), or ``(y, counts)`` with
+    ``return_counts=True``.
+
+    ``counts: (B, E)`` are prior per-expert loads from a decode cache
+    (single-token steps); ``pos`` is the step's global position, used to
+    reset the loads at ``group_size`` chunk boundaries.  The returned
+    counts are the loads after this call's last chunk, ready to cache.
+    """
+    B, S, D = x.shape
+    # Per-row groups: a dispatch group never spans batch rows, so decode
+    # (one group per row) and the full pass agree on group membership.
+    gs = min(m.group_size, S)
+    if S % gs:
+        raise ValueError(
+            f"moe: sequence length {S} must be <= group_size "
+            f"({m.group_size}) or a multiple of it; pad the sequence or "
+            f"adjust MoEConfig.group_size")
+    g = B * S // gs
+    xt = x.reshape(g, gs, D)
+    logits = (xt @ p["router"].to(xt.dtype)).float()
+    gates, oh = _top_k_gating(logits, m)
+    capacity = expert_capacity(m)
+    base = None
+    if counts is not None:
+        # decode step (S == 1, g == B): a chunk boundary resets the loads,
+        # where the full pass starts a fresh dispatch group
+        base = (torch.zeros_like(counts) if pos % m.group_size == 0
+                else counts).float()
+    if cfg.moe_impl == "gather":
+        ein, combine_fn, loads = _gather_dispatch(xt, gates, oh, capacity,
+                                                  base)
+    else:
+        comb, disp, loads = _dispatch_tensors(gates, oh, capacity, base)
+        comb = comb.to(x.dtype)
+        ein = torch.einsum("gsec,gsd->gecd", disp.to(x.dtype), xt)
+        combine_fn = lambda eout: torch.einsum(  # noqa: E731
+            "gsec,gecd->gsd", comb, eout)
+    w1 = p["w1"].to(x.dtype)
+    w2 = p["w2"].to(x.dtype)
+    if cfg.activation == "swiglu":
+        w3 = p["w3"].to(x.dtype)
+        h = silu(torch.einsum("gecd,edf->gecf", ein, w1)) * torch.einsum(
+            "gecd,edf->gecf", ein, w3)
+    else:
+        h = gelu(torch.einsum("gecd,edf->gecf", ein, w1))
+    eout = torch.einsum("gecf,efd->gecd", h, w2)
+    y = combine_fn(eout).reshape(B, S, D)
+    if m.shared_d_ff:
+        if cfg.activation == "swiglu":
+            hs = silu(x @ p["shared_w1"]) * (x @ p["shared_w3"])
+        else:
+            hs = gelu(x @ p["shared_w1"])
+        shared = hs @ p["shared_w2"]
+        sg = sigmoid((x @ p["shared_gate"]).float())
+        y = y + shared * sg.to(x.dtype)
+    if not return_counts:
+        return y
+    # loads after each row's LAST chunk — the state a later decode step
+    # needs (earlier chunks' loads are dead: their boundary passed)
+    E = loads.shape[-1]
+    counts_out = loads.reshape(B, S // gs, E)[:, -1].to(torch.int32)
+    return y, counts_out

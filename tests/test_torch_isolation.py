@@ -67,7 +67,11 @@ def test_every_module_is_covered():
                  "repro_torch.kernels.rwkv6_wkv",
                  "repro_torch.kernels.flash_attention",
                  "repro_torch.serving.engine", "repro_torch.serving.steps",
-                 "repro_torch.launch.serve"):
+                 "repro_torch.launch.serve", "repro_torch.kernels.mamba_scan",
+                 "repro_torch.nn.mamba", "repro_torch.nn.moe",
+                 "repro_torch.configs.jamba_v0_1_52b",
+                 "repro_torch.configs.qwen2_moe_a2_7b",
+                 "repro_torch.configs.grok_1_314b"):
         assert want in mods
 
 
@@ -110,6 +114,8 @@ def no_cuda():
     "zdt1_task", "make_zdt1", "batch_task", "batch_problem", "executor",
     "default_executor", "store", "solve_pf", "pf", "solver", "solver_for",
     "init_params", "init_cache", "serve_engine", "launch_serve",
+    "init_params_jamba", "init_cache_jamba", "serve_engine_moe",
+    "launch_serve_jamba",
 ])
 def test_entry_points_default_to_cuda_and_raise_here(no_cuda, entry):
     cpu_problem = as_problem(zdt1_task(d=3, device="cpu"))
@@ -132,6 +138,14 @@ def test_entry_points_default_to_cuda_and_raise_here(no_cuda, entry):
             get_smoke("qwen3-4b"), batch=1, max_seq=8),
         "launch_serve": lambda: serve.main(["--arch", "rwkv6-3b",
                                             "--smoke"]),
+        "init_params_jamba": lambda: init_params(get_smoke("jamba-v0.1-52b")),
+        "init_cache_jamba": lambda: init_cache(get_smoke("jamba-v0.1-52b"),
+                                               1, 8),
+        "serve_engine_moe": lambda: ServeEngine(
+            init_params(get_smoke("qwen2-moe-a2.7b"), device="cpu"),
+            get_smoke("qwen2-moe-a2.7b"), batch=1, max_seq=8),
+        "launch_serve_jamba": lambda: serve.main(["--arch", "jamba-v0.1-52b",
+                                                  "--smoke"]),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()

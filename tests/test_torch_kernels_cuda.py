@@ -20,7 +20,9 @@ tolerance (``tests/test_mogd_descend.py``); the fused MLP forward at 2e-5
 ``tests/test_kernels.py::TestMogdMLP`` and
 ``tests/test_mogd_descend.py::TestFusedMLPVJP``; the WKV recurrence at
 3e-4 and flash attention at 2e-3 (fp32) and 2e-2 (bf16), the tolerances of
-``TestRwkvWKV`` and ``TestFlashAttention`` in ``tests/test_kernels.py``.
+``TestRwkvWKV`` and ``TestFlashAttention`` in ``tests/test_kernels.py``;
+the selective scan at 3e-4 (``TestMambaScan``), and bit for bit against
+itself when a sequence is split in two with the state carried.
 """
 
 from __future__ import annotations
@@ -354,3 +356,94 @@ class TestFlashOnCard:
             flash_attention_cuda(q.double(), k.double(), v.double())
         with pytest.raises(ValueError, match="q: torch.float32"):
             flash_attention_cuda(q, k.bfloat16(), v.bfloat16())
+
+
+# ---------------------------------------------------------------------------
+# The selective scan at 3e-4 (TestMambaScan), the final state too.
+
+
+def _scan_case(B, T, d, n, seed, dev, state=False):
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
+    dt = f32(np.logaddexp(rng.normal(size=(B, T, d)), 0))
+    Bt, Ct = (f32(rng.normal(size=(B, T, n))) for _ in range(2))
+    xs = f32(rng.normal(size=(B, T, d)))
+    A = f32(-np.exp(rng.normal(size=(d, n)) * 0.3))
+    h0 = f32(rng.normal(size=(B, d, n)) * 0.5) if state else None
+    return dt, Bt, Ct, xs, A, h0
+
+
+@pytest.mark.cuda
+class TestMambaScanOnCard:
+    @pytest.mark.parametrize("B,T,d,n,state", [
+        (1, 512, 8192, 16, False), (1, 512, 8192, 16, True),
+        (1, 1, 8192, 16, True), (2, 37, 100, 4, True), (2, 64, 32, 4, False),
+        (1, 130, 48, 16, True), (3, 33, 64, 2, False), (2, 40, 96, 5, True),
+        (1, 70, 40, 20, True), (1, 33, 32, 64, True), (4, 1, 128, 8, False)])
+    def test_equals_plain(self, cuda_device, B, T, d, n, state):
+        from repro_torch.kernels.mamba_scan import mamba_scan_cuda
+
+        args = _scan_case(B, T, d, n, T + d + n, cuda_device, state)
+        before = platform.launch_counts().get("mamba_scan", 0)
+        y, h = mamba_scan_cuda(*args)
+        torch.cuda.synchronize()
+        assert platform.launch_counts()["mamba_scan"] == before + 1
+        want_y, want_h = ref.mamba_scan(*args)
+        for got, want in ((y, want_y), (h, want_h)):
+            np.testing.assert_allclose(got.cpu().numpy(),
+                                       want.cpu().numpy(), rtol=3e-4,
+                                       atol=3e-4)
+
+    def test_reads_strided_inputs(self, cuda_device):
+        """B_t and C_t as column slices of the x projection, dt and x with
+        a t stride wider than d (the Mamba layer's layout)."""
+        from repro_torch.kernels.mamba_scan import mamba_scan_cuda
+
+        rng = np.random.default_rng(1)
+        B, T, d, n = 2, 45, 72, 16
+        dev = cuda_device
+        proj = torch.tensor(rng.normal(size=(B, T, 8 + 2 * n)),
+                            dtype=torch.float32, device=dev)
+        Bt, Ct = proj[..., 8:8 + n], proj[..., 8 + n:]
+        wide = torch.tensor(rng.normal(size=(B, T, 2, d)),
+                            dtype=torch.float32, device=dev)
+        dt, xs = torch.nn.functional.softplus(wide[:, :, 0]), wide[:, :, 1]
+        A = -torch.exp(torch.tensor(rng.normal(size=(d, n)) * 0.3,
+                                    dtype=torch.float32, device=dev))
+        assert not Bt.is_contiguous() and not xs.is_contiguous()
+        y, h = mamba_scan_cuda(dt, Bt, Ct, xs, A)
+        want_y, want_h = ref.mamba_scan(dt.contiguous(), Bt.contiguous(),
+                                        Ct.contiguous(), xs.contiguous(), A)
+        np.testing.assert_allclose(y.cpu().numpy(), want_y.cpu().numpy(),
+                                   rtol=3e-4, atol=3e-4)
+        np.testing.assert_allclose(h.cpu().numpy(), want_h.cpu().numpy(),
+                                   rtol=3e-4, atol=3e-4)
+
+    def test_split_sequence_carries_the_state(self, cuda_device):
+        from repro_torch.kernels.mamba_scan import mamba_scan_cuda
+
+        dt, Bt, Ct, xs, A, _ = _scan_case(1, 100, 256, 16, 2, cuda_device)
+        y, h = mamba_scan_cuda(dt, Bt, Ct, xs, A)
+        y1, h1 = mamba_scan_cuda(dt[:, :41], Bt[:, :41], Ct[:, :41],
+                                 xs[:, :41], A)
+        y2, h2 = mamba_scan_cuda(dt[:, 41:], Bt[:, 41:], Ct[:, 41:],
+                                 xs[:, 41:], A, h1)
+        np.testing.assert_array_equal(torch.cat([y1, y2], 1).cpu().numpy(),
+                                      y.cpu().numpy())
+        np.testing.assert_array_equal(h2.cpu().numpy(), h.cpu().numpy())
+
+    def test_bad_inputs_raise(self, cuda_device):
+        from repro_torch.kernels.mamba_scan import mamba_scan_cuda
+
+        dt, Bt, Ct, xs, A, _ = _scan_case(1, 4, 8, 4, 0, cuda_device)
+        with pytest.raises(ValueError, match="float32"):
+            mamba_scan_cuda(dt.double(), Bt, Ct, xs, A)
+        with pytest.raises(ValueError, match="Ct"):
+            mamba_scan_cuda(dt, Bt, Ct[..., :2], xs, A)
+        with pytest.raises(ValueError, match="h0"):
+            mamba_scan_cuda(dt, Bt, Ct, xs, A,
+                            torch.zeros(1, 8, 3, device=cuda_device))
+        with pytest.raises(ValueError, match="state size"):
+            mamba_scan_cuda(dt, torch.zeros(1, 4, 65, device=cuda_device),
+                            torch.zeros(1, 4, 65, device=cuda_device), xs,
+                            torch.zeros(8, 65, device=cuda_device))

@@ -51,7 +51,6 @@ from repro_torch.kernels import ops as pops
 from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.nn import attention as pattn
 from repro_torch.nn import rwkv as prwkv
-from repro_torch.nn.blocks import UNPORTED
 from repro_torch.nn.convert import cache_to_numpy, params_from_numpy
 
 WKV_TOL, CHUNK_TOL = 3e-4, 1e-5
@@ -59,9 +58,7 @@ FLASH_TOL = {"float32": 2e-3, "bfloat16": 2e-2}
 F32_TOL = 1e-4
 PREFILL_TOL, DECODE_TOL = 2e-2, 3e-2
 BF16_REL, BF16_MARGIN = 2.5e-2, 0.0625
-PORTED = [a for a in rconfigs.ARCH_IDS
-          if rconfigs.get_smoke(a).moe is None
-          and rconfigs.get_smoke(a).hybrid is None]
+PORTED = list(rconfigs.ARCH_IDS)
 
 
 def _np(a) -> np.ndarray:
@@ -420,15 +417,9 @@ class TestModelsAgainstReference:
 def test_decode_matches_prefill(arch):
     """The port's step-by-step decode reproduces its full-sequence logits
     (``TestArchSmoke::test_decode_matches_prefill``: bf16 compute, 2e-2 for
-    prefill, 3e-2 for decode).  Kinds of a later slice raise
-    ``NotImplementedError`` naming it."""
+    prefill, 3e-2 for decode)."""
+    assert arch in PORTED
     cfg = pconfigs.get_smoke(arch)
-    if arch not in PORTED:
-        with pytest.raises(NotImplementedError, match="Jamba slice"):
-            pnn.init_params(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="Jamba slice"):
-            pnn.init_cache(cfg, 1, 8, device="cpu")
-        return
     params = pnn.init_params(cfg, seed=0, device="cpu")
     seq = 16
     rng = np.random.default_rng(7)
@@ -488,8 +479,33 @@ def test_configs_equal_the_reference():
     assert list(pconfigs.all_cells()) == list(rconfigs.all_cells())
 
 
-def test_unported_kinds_name_their_slice():
-    assert set(UNPORTED) == {"mamba", "moe"}
-    for arch in set(rconfigs.ARCH_IDS) - set(PORTED):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pnn.init_params(pconfigs.get_config(arch), device="cpu")
+@pytest.mark.parametrize("arch", rconfigs.ARCH_IDS)
+def test_every_smoke_config_inits_prefills_and_decodes(arch):
+    """Every kind is ported: each smoke config inits, prefills two rows
+    into a cache of the zero cache's structure, shapes and dtypes, and
+    decodes from that cache the logits of the full pass over the longer
+    sequence (bf16: 3e-2, as ``test_decode_matches_prefill``)."""
+    cfg = pconfigs.get_smoke(arch)
+    params = pnn.init_params(cfg, seed=1, device="cpu")
+    seq, steps = 12, 3
+    rng = np.random.default_rng(2)
+    if cfg.embed_input:
+        batch = {"embeds": torch.tensor(rng.normal(
+            size=(2, seq + steps, cfg.d_model)) * 0.3).to(torch.bfloat16)}
+    else:
+        batch = {"tokens": torch.tensor(
+            rng.integers(0, cfg.vocab, (2, seq + steps)))}
+    full, _ = pnn.forward(params, cfg, batch, mode="train")
+    head = {k: v[:, :seq] for k, v in batch.items()}
+    last, cache = pnn.prefill(params, cfg, head, max_seq=seq + steps)
+    _close(last, full[:, seq - 1], PREFILL_TOL)
+    zero = pnn.init_cache(cfg, 2, seq + steps, device="cpu")
+    spec = lambda t: (tuple(t.shape), t.dtype)  # noqa: E731
+    assert (jax.tree.map(spec, cache, is_leaf=torch.is_tensor)
+            == jax.tree.map(spec, zero, is_leaf=torch.is_tensor))
+    for t in range(seq, seq + steps):
+        lg, cache = pnn.decode_step(
+            params, cfg, cache, {k: v[:, t:t + 1] for k, v in batch.items()},
+            t)
+        assert bool(torch.isfinite(lg.float()).all())
+        _close(lg, full[:, t], DECODE_TOL)

@@ -58,7 +58,7 @@ def _recording(engine):
     return seen
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-3b", "qwen3-4b"])
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "qwen3-4b", "jamba-v0.1-52b"])
 def test_engine_tokens_equal_the_reference(arch):
     """6 requests over 2 slots: four wait in the queue and drain into the
     slots that finished requests free, at different steps."""
@@ -118,6 +118,31 @@ def test_slots_keep_their_own_caches():
         assert torch.equal(b["k"][:, :pos], a["k"][:, :pos])
 
 
+def test_jamba_slots_keep_their_own_states():
+    """A Jamba slot's decode replaces its own Mamba ``h``/``conv`` and MoE
+    ``moe_counts`` and leaves the other slot's untouched."""
+    cfg = pconfigs.get_smoke("jamba-v0.1-52b")
+    eng = pserving.ServeEngine(init_params(cfg, device="cpu"), cfg, batch=2,
+                               max_seq=MAX_SEQ, device="cpu")
+    reqs = _requests(pserving, cfg.vocab)[:2]
+    for r in reqs:
+        eng.submit(r)
+    layers = lambda i: [layer for unit in eng.slot_cache[i]  # noqa: E731
+                        for layer in unit.values()]
+    kinds = {k for layer in layers(0) for k in layer}
+    assert {"h", "conv", "moe_counts", "k", "v"} <= kinds
+    before = [[{k: t.clone() for k, t in layer.items()} for layer in
+               layers(i)] for i in range(2)]
+    eng.slots[1] = None  # only slot 0 decodes
+    eng.step()
+    for b, a in zip(before[1], layers(1)):
+        for k in b:
+            assert torch.equal(b[k], a[k]), k
+    changed = {k for b, a in zip(before[0], layers(0)) for k in b
+               if not torch.equal(b[k], a[k])}
+    assert {"h", "conv", "moe_counts"} <= changed
+
+
 def test_engine_casts_the_parameters_once():
     cfg = pconfigs.get_smoke("rwkv6-3b")
     params = init_params(cfg, device="cpu")
@@ -143,7 +168,8 @@ def test_temperature_sampling_follows_its_seed():
     assert all(0 <= t < cfg.vocab for out in first for t in out)
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-3b", "qwen3-4b"])
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "qwen3-4b", "jamba-v0.1-52b",
+                                  "qwen2-moe-a2.7b", "grok-1-314b"])
 def test_launch_serve_on_the_host(arch):
     out = pserve.main(["--arch", arch, "--smoke", "--device", "cpu",
                        "--requests", "5", "--batch", "2", "--prompt-len",
