@@ -11,10 +11,14 @@ Phases (any failure exits non-zero; nothing is caught and turned into 0):
    with nvcc for sm_90a.
 2. Kernels against their plain versions at the main path's shapes:
    ``cross_dominator_counts`` (exact) and ``descend_batch`` at the paper's
-   surrogate width (D=13, hidden (128,)*4, k=2), timed with CUDA events.
+   surrogate width (D=13, hidden (128,)*4, k=2) on its resident route (the
+   group's weights in a cluster's shared memory), timed with CUDA events
+   beside its streaming route (the first port's kernel) in the same run.
 3. Main path, one task: PF-AP over the 12 Spark knobs with two random
    paper-shape MLP surrogates, through the fused descend kernel and the
-   kernel path of the frontier store, then the task's recommendation.
+   kernel path of the frontier store, then the task's recommendation; then
+   the same task again on each descend route, for its time to a frontier
+   and its descend launches' device time (CUDA events).
 4. Main path, coalesced tenants: one task per workload of ``batch_suite()``
    (258 tenants), ten rounds of ``coalesce_step`` over ``solve_grouped``.
 5. The service: one ``MOOService`` holding the 258 tenants, the 5-stage ETL
@@ -51,10 +55,12 @@ Phases (any failure exits non-zero; nothing is caught and turned into 0):
    the next is built.  The launch counts are set to 0 just before
    ``ServeEngine.run`` and read just after it: each kernel must have
    launched exactly once per mixer layer of every prefill (and, for WKV
-   and the scan, every decode step) the engine made, and no plain WKV,
-   attention or scan may have run on a CUDA tensor.
+   and the scan, every decode step) the engine made, every flash launch
+   of those bf16 prefills on the tensor-core route, and no plain WKV,
+   attention or scan may have run on a CUDA tensor, forward or backward.
 8. Assertions: fused dispatches, no fallbacks, every kernel launched on its
-   path, no JAX or ``repro`` module loaded, everything on ``cuda``.
+   path, every descend launch of phases 3-5 on the resident route, no JAX
+   or ``repro`` module loaded, everything on ``cuda``.
 
 Phase 2 also holds ``pairwise_compose`` to its plain version bit for bit,
 and ``mlp_forward`` (the fused surrogate forward), its gradients and a
@@ -67,6 +73,7 @@ script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -616,6 +623,11 @@ def phase_descend(dev, G=64, R=4, S=16, reps=3) -> dict:
       times the control's rows, overall and in its worst group (plus one
       row there), so a fault confined to one group or to a few percent of
       the rows fails.
+
+    The port routes this shape to the resident kernel, and every check
+    above runs on it.  The streaming kernel (the route of plans too wide
+    for a cluster, forced here) passes the ``EXACT_STEPS`` checks before
+    it is timed beside the resident one as the earlier kernel's time.
     """
     import dataclasses
 
@@ -626,22 +638,44 @@ def phase_descend(dev, G=64, R=4, S=16, reps=3) -> dict:
         descend_batch_plain,
     )
 
+    from repro_torch.kernels import platform
+    from repro_torch.kernels.mogd_descend import descend_route, sm_count
+
     plan, cfg, params, batch = descend_case(dev, G, R, S)
-    strict = {}
-    for steps in EXACT_STEPS:
-        _, _, rows = _descend_errors(
-            plan, dataclasses.replace(cfg, steps=steps), params, batch)
-        strict[f"steps={steps}"] = float(rows.max())
-    for ratio in GRAD_RATIOS:
-        lin = dataclasses.replace(cfg, steps=1, adam_eps=GRAD_EPS,
-                                  lr=ratio * GRAD_EPS)
-        _, _, rows = _descend_errors(plan, lin, params, batch)
-        strict[f"lr/eps={ratio:g}"] = float(rows.max())
-    for label, err in strict.items():
-        log(f"descend: {label}: max |dx| kernel vs plain = {err:.3e}")
-        if not err <= GATE:
-            fail(f"descend kernel disagrees with its plain version at "
-                 f"{label}: {err:.3e} > {GATE:g}")
+    route, cluster_rows = descend_route(plan, G, R * S, sm_count(dev))
+    if route != "resident":
+        fail(f"descend at the paper shape takes the {route} route")
+
+    def strict_checks(label, cases):
+        """``cases`` (label -> config) on the route ``label``: every
+        element of every final point within ``GATE`` of the plain
+        version's."""
+        platform.reset_launches()
+        errs = {}
+        for name, c in cases.items():
+            _, _, rows = _descend_errors(plan, c, params, batch)
+            errs[name] = float(rows.max())
+        if platform.route_counts() != {f"descend_batch:{label}": len(errs)}:
+            fail(f"descend checks' routes: {platform.route_counts()}")
+        for name, err in errs.items():
+            log(f"descend ({label}): {name}: max |dx| kernel vs plain = "
+                f"{err:.3e}")
+            if not err <= GATE:
+                fail(f"descend {label} kernel disagrees with its plain "
+                     f"version at {name}: {err:.3e} > {GATE:g}")
+        return errs
+
+    exact = {f"steps={steps}": dataclasses.replace(cfg, steps=steps)
+             for steps in EXACT_STEPS}
+    strict = strict_checks("resident", {
+        **exact,
+        **{f"lr/eps={ratio:g}": dataclasses.replace(
+            cfg, steps=1, adam_eps=GRAD_EPS, lr=ratio * GRAD_EPS)
+           for ratio in GRAD_RATIOS}})
+    # the streaming route (the first port's kernel, which phase 3 also
+    # runs a whole task on) is held to the same bar before it is timed
+    with streaming_descend():
+        strict_streaming = strict_checks("streaming", exact)
 
     got, want, row_kp = _descend_errors(plan, cfg, params, batch)
     host = descend_batch_plain(plan, cfg, _to(params, "cpu"),
@@ -662,6 +696,9 @@ def phase_descend(dev, G=64, R=4, S=16, reps=3) -> dict:
              f"(worst group {worst_kp}); the control parts on {n_ph} "
              f"(worst group {worst_ph})")
     ms = time_ms(lambda: descend_batch(plan, cfg, params, *batch), reps)
+    with streaming_descend():
+        ms_streaming = time_ms(
+            lambda: descend_batch(plan, cfg, params, *batch), reps)
     plain_ms = time_ms(lambda: descend_batch_plain(plan, cfg, params, *batch),
                        reps)
     flops = descend_flops(plan, G, R * S, cfg.steps)
@@ -671,12 +708,31 @@ def phase_descend(dev, G=64, R=4, S=16, reps=3) -> dict:
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     return {"shape": [G, R, S], "steps": cfg.steps,
             "max_abs_err": max(strict.values()), "strict_errs": strict,
+            "strict_errs_streaming": strict_streaming,
             "full_err": err, "full_rows_apart": n_kp,
             "full_rows_apart_control": n_ph, "full_worst_group": worst_kp,
             "full_worst_group_control": worst_ph, "rows": int(row_kp.numel()),
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+            "route": route, "rows_per_cluster": cluster_rows, "ms": ms,
+            "ms_streaming": ms_streaming,
+            "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "gflops_s": flops / (ms * 1e-3) / 1e9}
+
+
+@contextlib.contextmanager
+def streaming_descend():
+    """``descend_batch`` forced onto its streaming route (the first port's
+    kernel, weights streamed from L2 every step) for an in-run comparison
+    with the resident route; the port's own choice is restored on exit."""
+    from repro_torch.kernels import mogd_descend as md
+
+    chosen = md.descend_route
+    md.descend_route = lambda plan, G, M, n_sm: ("streaming",
+                                                 md._block_rows(plan, M))
+    try:
+        yield
+    finally:
+        md.descend_route = chosen
 
 
 def _to(tree, device):
@@ -796,6 +852,63 @@ def phase_single_task(dev) -> dict:
     return {"probes": res.probes, "points": len(res.F), "hv": hv,
             "seconds": wall, "spans": span_s,
             "recommendation": res.F[idx].tolist(), "stats": stats}
+
+
+def single_task_descend(dev) -> dict:
+    """The single task's time to a frontier and the device time of its
+    descend launches, by route: PF-AP on phase 3's task again, as the port
+    routes it (resident) and forced onto the streaming route.  Each launch
+    is bracketed by CUDA events on its stream (the profiler is kept out of
+    this phase: the host-bound phases after it would pay for it)."""
+    import torch
+
+    from repro_torch.core import MOGDConfig, ProgressiveFrontier
+    from repro_torch.kernels import native, platform
+
+    lib = native.library()
+    entries = ("mogd_descend", "mogd_descend_resident")
+    saved = {name: getattr(lib, name) for name in entries}
+    events = []
+
+    def timed(fn):
+        def call(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            err = fn(*args)
+            end.record()
+            events.append((start, end))
+            return err
+        return call
+
+    out = {}
+    try:
+        for name in entries:
+            setattr(lib, name, timed(saved[name]))
+        for label, ctx in (("resident", contextlib.nullcontext()),
+                           ("streaming", streaming_descend())):
+            with ctx:
+                platform.reset_launches()
+                events.clear()
+                pf = ProgressiveFrontier(spark_task(0, dev), mode="AP",
+                                         mogd=MOGDConfig(), use_kernel=True,
+                                         device=dev)
+                t0 = time.perf_counter()
+                pf.run(n_probes=64)
+                _sync(dev)
+                wall = time.perf_counter() - t0
+            routes = platform.route_counts()
+            out[label] = {
+                "seconds": wall, "routes": routes,
+                "descend_device_s": sum(s.elapsed_time(e)
+                                        for s, e in events) / 1e3}
+            if set(routes) != {f"descend_batch:{label}"}:
+                fail(f"single task forced to {label}: routes {routes}")
+    finally:
+        for name, fn in saved.items():
+            setattr(lib, name, fn)
+    log(f"single task by descend route: {out}")
+    return out
 
 
 def phase_tenants(dev, rounds: int = 10) -> dict:
@@ -1499,6 +1612,9 @@ def _no_plain_on_card(platform, label: str) -> dict:
         if plain.get(name, 0):
             fail(f"{label}: the plain {name} ran {plain[name]} times on a "
                  f"CUDA tensor")
+    if platform.plain_backward_on_cuda_counts():
+        fail(f"{label}: backward recomputes on the card: "
+             f"{platform.plain_backward_on_cuda_counts()}")
     return plain
 
 
@@ -1620,9 +1736,14 @@ def lm_serve(dev, arch: str) -> dict:
     _sync(dev)
     wall = time.perf_counter() - t0
     launches = platform.launch_counts()
+    routes = platform.route_counts()
     plain = _no_plain_on_card(platform, f"{arch} ServeEngine.run")
-    log(f"{arch} ServeEngine.run launches: {launches}; plain versions on "
-        f"the card: {plain}")
+    log(f"{arch} ServeEngine.run launches: {launches}; routes: {routes}; "
+        f"plain versions on the card: {plain}")
+    if routes.get("flash_attention:wgmma", 0) != launches.get(
+            "flash_attention", 0):
+        fail(f"{arch}: bf16 prefills' flash launches by route {routes}, "
+             f"want all {launches.get('flash_attention', 0)} on wgmma")
     n_prefill = sum(len(v) for v in prefill_s.values())
     calls = n_prefill + len(decode_s)
     want = {"rwkv6_wkv": _mixer_layers(cfg, "rwkv") * calls,
@@ -1650,7 +1771,7 @@ def lm_serve(dev, arch: str) -> dict:
     out = {"layers": cfg.n_layers, "d_model": cfg.d_model,
            "param_dtype": cfg.param_dtype,
            "params_b": n_params / 1e9, "init_s": init_s,
-           "launches": launches,
+           "launches": launches, "routes": routes,
            "fp32_check_err": check, "requests": len(reqs),
            "tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
            "decode_calls": len(decode_s),
@@ -1739,19 +1860,23 @@ def main() -> int:
     platform.reset_launches()
     single = phase_single_task(dev)
     launches = platform.launch_counts()
+    routes = {"single_task": platform.route_counts()}
     log(f"main-path launches: {launches}")
+    single["by_route"] = single_task_descend(dev)
     mark("single_task")
     # phase 4: coalesced tenants (counted separately)
     platform.reset_launches()
     tenants = phase_tenants(dev)
     tenant_launches = platform.launch_counts()
+    routes["tenants"] = platform.route_counts()
     log(f"tenant-path launches: {tenant_launches}")
     mark("tenants")
     # phase 5: the service with DAG jobs (counted separately)
     platform.reset_launches()
     service = phase_service(dev)
     service_launches = platform.launch_counts()
-    log(f"service-path launches: {service_launches}")
+    routes["service"] = platform.route_counts()
+    log(f"service-path launches: {service_launches}; routes: {routes}")
     # the compose kernel's time at a shape of its path: the ETL job's
     # extract x transform_a stage frontiers
     pts = service["dags"]["etl"]["stage_points"]
@@ -1797,6 +1922,13 @@ def main() -> int:
                  "pairwise_compose"):
         if service_launches.get(name, 0) <= 0:
             fail(f"kernel {name} was not launched on the service path")
+    for label, counts in (("single_task", launches),
+                          ("tenants", tenant_launches),
+                          ("service", service_launches)):
+        if routes[label] != {"descend_batch:resident":
+                             counts["descend_batch"]}:
+            fail(f"{label}: descend launches by route {routes[label]}, "
+                 f"want all {counts['descend_batch']} resident")
     bad = sorted(m for m in sys.modules
                  if m == "jax" or m.startswith(("jax.", "jaxlib"))
                  or m == "repro" or m.startswith("repro."))
@@ -1817,7 +1949,8 @@ def main() -> int:
          "launches": launches["descend_batch"],
          "max_abs_err": d["max_abs_err"], "ms": d["ms"],
          "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
-         "bound_by": d["bound_by"], "library_ms": None},
+         "bound_by": d["bound_by"], "library_ms": None,
+         "kernel_route": d["route"], "ms_before": d["ms_streaming"]},
         {"name": "pairwise_compose", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/compose.cu",
          "replaces": "src/repro/kernels/compose.py:31",
@@ -1847,7 +1980,8 @@ def main() -> int:
          "max_abs_err": max(lm["check"]["flash_err"].values()),
          **{k: lm["timing"]["flash"]["bfloat16_512"][k]
             for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                      "library_ms")}},
+                      "library_ms")},
+         "kernel_route": "wgmma"},
         {"name": "mamba_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
          "replaces": "src/repro/kernels/mamba_scan.py:26",
@@ -1870,6 +2004,7 @@ def main() -> int:
                             "tenants": tenant_launches,
                             "service": service_launches,
                             "modelserver": ms_launches},
+               "routes": routes,
                "pareto_4096": p_big, "descend": d,
                "compose_path": c_main, "compose_4096": c_big,
                "mlp_check": m_chk, "mlp_gate": m_gate, "mlp_4096": m_big,

@@ -7,9 +7,17 @@ registers of four lanes for the whole sequence and reads B_t/C_t as the
 column slices of the x projection that the layer hands it; its header gives
 the design and the bound.
 
-:func:`mamba_scan` routes on the device of its inputs: CUDA tensors launch
-the kernel (:func:`mamba_scan_cuda`), CPU tensors take the plain version
-(``kernels.ref.mamba_scan``, the sequential loop).
+:func:`mamba_scan` is differentiable (:class:`MambaScan`).  Its forward
+routes on the device of its inputs: CUDA tensors launch the kernel
+(:func:`mamba_scan_cuda`), CPU tensors take the plain version
+(``kernels.ref.mamba_scan``, the sequential loop).  Its backward recomputes
+through the plain version under ``enable_grad`` and differentiates that
+(``platform.plain_backward``; counted in ``PLAIN_BACKWARD_ON_CUDA`` on the
+card): the reference has no backward kernel either, its model code
+differentiating plain ``jax`` ops.  Both outputs carry a gradient: the
+final state of a prefill feeds the decode cache, so a loss through the
+cached state reaches dt, B_t, C_t, x, A and h0.  The strided B_t/C_t
+slices are saved as the views they are (no copy).
 """
 
 from __future__ import annotations
@@ -19,7 +27,12 @@ import ctypes
 import torch
 
 from . import native, ref
-from .platform import LAUNCHES, use_kernel
+from .platform import (
+    LAUNCHES,
+    PLAIN_BACKWARD_ON_CUDA,
+    plain_backward,
+    use_kernel,
+)
 
 MAX_STATE = 64  # four lanes of at most 16 states each
 
@@ -94,10 +107,35 @@ def mamba_scan_cuda(dt, Bt, Ct, xs, A, h0=None):
     return y, h_out
 
 
+def _plain_for_backward(dt, Bt, Ct, xs, A, h0):
+    return ref.mamba_scan(dt, Bt, Ct, xs, A, h0,
+                          counts=PLAIN_BACKWARD_ON_CUDA)
+
+
+class MambaScan(torch.autograd.Function):
+    """``apply(dt, Bt, Ct, xs, A, h0)`` -> ``(y, h_final)``: the kernel on
+    CUDA tensors, the plain loop on CPU tensors; the backward differentiates
+    the plain loop, recomputed (no backward kernel)."""
+
+    @staticmethod
+    def forward(dt, Bt, Ct, xs, A, h0):
+        if use_kernel(xs):
+            return mamba_scan_cuda(dt, Bt, Ct, xs, A, h0)
+        return ref.mamba_scan(dt, Bt, Ct, xs, A, h0)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)  # views as given: no copy
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        return plain_backward(_plain_for_backward, ctx.saved_tensors,
+                              ctx.needs_input_grad, (gy, gh))
+
+
 def mamba_scan(dt, Bt, Ct, xs, A, h0=None):
     """dt/xs: ``(B, T, d)`` float32; Bt/Ct: ``(B, T, n)``; A: ``(d, n)``;
     h0: ``(B, d, n)`` or None (zeros) -> ``(y, h_final)``.  The kernel on
-    CUDA tensors, the plain sequential loop on CPU tensors."""
-    if use_kernel(xs):
-        return mamba_scan_cuda(dt, Bt, Ct, xs, A, h0)
-    return ref.mamba_scan(dt, Bt, Ct, xs, A, h0)
+    CUDA tensors, the plain sequential loop on CPU tensors; differentiable
+    in every tensor input (:class:`MambaScan`)."""
+    return MambaScan.apply(dt, Bt, Ct, xs, A, h0)

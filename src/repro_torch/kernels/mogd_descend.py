@@ -19,7 +19,21 @@ standardization affine is folded into the first and last layers
 
 Two tiers, chosen by the device of the inputs (``kernels.platform``):
 
-* CUDA tensors: the hand-written Hopper kernel (:func:`descend_batch`).
+* CUDA tensors: the hand-written Hopper kernel (:func:`descend_batch`), by
+  one of two routes that :func:`descend_route` picks from the plan's shape
+  (an explicit route by shape, never a fallback; each counted in
+  ``platform.ROUTES``):
+
+  - ``"resident"``: a thread-block cluster of ``2k`` CTAs per group (and
+    row block) holds the group's folded weights in its CTAs' shared memory
+    for all steps, CTA ``(j, h)`` objective ``j``'s half ``h`` of every
+    hidden layer's output columns (:func:`resident_layout`,
+    :func:`_pack_resident`).  Every plan whose weights fit
+    (:func:`resident_smem_bytes`), the paper's shape included.
+  - ``"streaming"``: one block per row tile streams each layer's weights
+    from L2 on every step; plans too wide for the cluster, with more than
+    four objectives, or with objectives of unequal depth.
+
 * CPU tensors: :func:`descend_batch_plain`, the same hand-written forward
   and backward in PyTorch operations — the CPU tier and the kernel's
   oracle on the card, like the reference's ``"xla"`` tier.
@@ -37,12 +51,14 @@ import math
 import torch
 
 from . import native
-from .platform import LAUNCHES, use_kernel
+from .platform import LAUNCHES, ROUTES, use_kernel
 
 BLOCK_M = 32  # rows per CUDA block (4 warps); halves for small M
 MAX_OBJECTIVES = 8
 MAX_LAYERS = 8
 MAX_SMEM = 232448  # bytes of shared memory one block may use on Hopper
+MAX_CLUSTER = 8  # CTAs of a portable thread-block cluster
+RESIDENT_ROWS = (64, 32, 16)  # rows a resident cluster may cover
 
 # per-operand pad constants (reference mogd_descend.py:284-288): padded
 # rows descend on a finite, unconstrained loss and are sliced off
@@ -298,14 +314,187 @@ def _block_rows(plan: DescendPlan, M: int) -> int:
     return block_m
 
 
+# ---------------------------------------------------------------------------
+# The resident route: the group's weights in a cluster's shared memory
+# ---------------------------------------------------------------------------
+
+
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+@dataclasses.dataclass(frozen=True)
+class ResidentLayout:
+    """How the resident route splits a plan over a cluster of ``2k`` CTAs.
+
+    CTA ``(j, h)`` holds, for objective ``j``, the columns ``h*n/2 ..
+    (h+1)*n/2`` of every hidden layer of width ``n``, padded to ``np`` (a
+    multiple of 4), and the matching half of the last layer's input rows.
+    ``layers[j]`` is one ``(kp, np, w, b)`` per hidden layer: padded input
+    rows (``dp`` for layer 0, the previous layer's two padded halves side by
+    side after it), padded local columns, and the float offsets of ``W (kp,
+    np)`` and of the bias in the CTA's weight block; ``last[j]`` the offsets
+    of the last layer's input half and of its bias.  ``block`` is the floats
+    of one CTA's block (the largest objective's, a multiple of 4)."""
+
+    dp: int
+    hidden: int
+    wmax: int
+    block: int
+    layers: tuple
+    last: tuple
+
+
+def resident_layout(plan: DescendPlan) -> ResidentLayout | None:
+    """The plan's split over a cluster, or None where the resident kernel
+    does not take the plan at any row count: more than ``MAX_CLUSTER/2``
+    objectives, objectives of unequal depth (the cluster's barriers are
+    per layer), no hidden layer, or an odd hidden width."""
+    if plan.k > MAX_CLUSTER // 2:
+        return None
+    depths = {len(dims) for dims in plan.layer_dims}
+    if len(depths) != 1 or min(depths) < 3:
+        return None
+    dp = _round4(plan.dim)
+    layers, last, sizes = [], [], []
+    for dims in plan.layer_dims:
+        hidden = dims[1:-1]
+        if any(n % 2 for n in hidden):
+            return None
+        off, kp, obj = 0, dp, []
+        for n in hidden:
+            np_ = _round4(n // 2)
+            obj.append((kp, np_, off, off + kp * np_))
+            off += kp * np_ + np_
+            kp = 2 * np_
+        last.append((off, off + obj[-1][1]))
+        sizes.append(off + obj[-1][1] + 4)
+        layers.append(tuple(obj))
+    return ResidentLayout(
+        dp=dp, hidden=depths.pop() - 2,
+        wmax=max(ly[1] for obj in layers for ly in obj), block=max(sizes),
+        layers=tuple(layers), last=tuple(last))
+
+
+def resident_smem_bytes(layout: ResidentLayout, block_rows: int) -> int:
+    """Shared memory of one resident CTA over ``block_rows`` rows; must
+    match the kernel's carve-up: the weight block; x, m, v and the partial
+    dL/dx (``dp`` x rows each); six row constants, the two last-layer halves
+    and dL/draw; the ReLU mask bits; two activation buffers of ``2*wmax``
+    columns (the backward reuses them)."""
+    bm, dp = block_rows, layout.dp
+    mask_words = _round4(layout.hidden * layout.wmax * (-(-bm // 32)))
+    floats = (layout.block + 4 * dp * bm + 9 * bm + mask_words
+              + 4 * layout.wmax * bm)
+    return 4 * floats
+
+
+def resident_rows(plan: DescendPlan, G: int, M: int,
+                  n_sm: int) -> int | None:
+    """Rows per cluster for the resident route, or None when the plan does
+    not take it.  The largest of ``RESIDENT_ROWS`` (at most ``M`` rounded up
+    to 16) that fits in shared memory and still gives a CTA to each of the
+    card's ``n_sm`` SMs; the smallest that fits when none gives that many
+    (a small G: the group's rows are split over more clusters)."""
+    layout = resident_layout(plan)
+    if layout is None:
+        return None
+    cap = min(RESIDENT_ROWS[0], -(-M // 16) * 16)
+    fits = [bm for bm in RESIDENT_ROWS
+            if bm <= cap and resident_smem_bytes(layout, bm) <= MAX_SMEM]
+    for bm in fits:
+        if G * -(-M // bm) * 2 * plan.k >= n_sm:
+            return bm
+    return fits[-1] if fits else None
+
+
+def descend_route(plan: DescendPlan, G: int, M: int,
+                  n_sm: int) -> tuple[str, int]:
+    """``("resident", rows per cluster)`` where the plan's weights fit a
+    cluster's shared memory, else ``("streaming", rows per block)``;
+    ``n_sm`` is the SM count of the card that will run it
+    (:func:`sm_count`)."""
+    rows = resident_rows(plan, G, M, n_sm)
+    if rows is not None:
+        return "resident", rows
+    return "streaming", _block_rows(plan, M)
+
+
+def sm_count(device) -> int:
+    """The number of SMs of the card ``device`` names."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+class _RLayer(ctypes.Structure):
+    _fields_ = [("kp", ctypes.c_int), ("np", ctypes.c_int),
+                ("w", ctypes.c_int), ("b", ctypes.c_int)]
+
+
+class _RPlan(ctypes.Structure):
+    _fields_ = [("k", ctypes.c_int), ("dp", ctypes.c_int),
+                ("block", ctypes.c_int), ("wmax", ctypes.c_int),
+                ("hidden", ctypes.c_int),
+                ("log_target", ctypes.c_int * MAX_OBJECTIVES),
+                ("sign", ctypes.c_float * MAX_OBJECTIVES),
+                ("last_w", ctypes.c_int * MAX_OBJECTIVES),
+                ("last_b", ctypes.c_int * MAX_OBJECTIVES),
+                ("layer", (_RLayer * MAX_LAYERS) * MAX_OBJECTIVES)]
+
+
+def _pack_resident(plan: DescendPlan, layout: ResidentLayout, folded):
+    """Per-group weight blocks ``(G, 2k, block)``, CTA ``(j, h)`` at ``2j +
+    h``, zero in every padding row and column, plus the ctypes plan."""
+    cplan = _RPlan()
+    cplan.k, cplan.dp, cplan.block = plan.k, layout.dp, layout.block
+    cplan.wmax, cplan.hidden = layout.wmax, layout.hidden
+    blocks = []
+    for j, (ws, bs) in enumerate(folded):
+        cplan.log_target[j] = int(plan.log_targets[j])
+        cplan.sign[j] = float(plan.signs[j])
+        cplan.last_w[j], cplan.last_b[j] = layout.last[j]
+        for layer, (kp, np_, w_off, b_off) in enumerate(layout.layers[j]):
+            desc = cplan.layer[j][layer]
+            desc.kp, desc.np, desc.w, desc.b = kp, np_, w_off, b_off
+        G = ws[0].shape[0]
+        for h in (0, 1):
+            buf = ws[0].new_zeros((G, layout.block))
+            for layer, (kp, np_, w_off, b_off) in enumerate(
+                    layout.layers[j]):
+                w, b = ws[layer], bs[layer]
+                n = w.shape[2] // 2
+                cols = slice(h * n, (h + 1) * n)
+                wz = w.new_zeros((G, kp, np_))
+                if layer == 0:
+                    wz[:, :w.shape[1], :n] = w[:, :, cols]
+                else:
+                    n_in, half_in = w.shape[1] // 2, kp // 2
+                    for hh in (0, 1):
+                        wz[:, hh * half_in:hh * half_in + n_in, :n] = (
+                            w[:, hh * n_in:(hh + 1) * n_in, cols])
+                buf[:, w_off:w_off + kp * np_] = wz.reshape(G, -1)
+                buf[:, b_off:b_off + n] = b[:, cols]
+            w_last, b_last = layout.last[j]
+            n = ws[-1].shape[1] // 2
+            buf[:, w_last:w_last + n] = ws[-1][:, h * n:(h + 1) * n, 0]
+            buf[:, b_last] = bs[-1][:, 0]
+            blocks.append(buf)
+    return torch.stack(blocks, dim=1).to(torch.float32).contiguous(), cplan
+
+
+# ---------------------------------------------------------------------------
+# Launch
+# ---------------------------------------------------------------------------
+
+
 def _descend_cuda(plan: DescendPlan, cfg, folded, x, lo, hi, ulo, uhi, us,
                   tsel):
     """``x: (G, M, D)`` rows + per-group folded weights -> finals, on the
-    card through ``csrc/mogd_descend.cu``."""
+    card through ``csrc/mogd_descend.cu`` by the route of
+    :func:`descend_route`."""
     G, M, D = x.shape
     if G == 0 or M == 0:
         return x.clone()
-    block_m = _block_rows(plan, M)
+    route, block_m = descend_route(plan, G, M, sm_count(x.device))
     pad = (-M) % block_m
     ops = {"x": x, "lo": lo, "hi": hi, "ulo": ulo, "uhi": uhi, "us": us,
            "tsel": tsel}
@@ -318,28 +507,39 @@ def _descend_cuda(plan: DescendPlan, cfg, folded, x, lo, hi, ulo, uhi, us,
                           dim=1)
         ops[name] = a.contiguous()
     Mp = M + pad
-    packed, cplan = _pack_weights(plan, folded)
+    lib = native.library()
+    if route == "resident":
+        layout = resident_layout(plan)
+        packed, cplan = _pack_resident(plan, layout, folded)
+        if lib.mogd_resident_plan_bytes() != ctypes.sizeof(_RPlan):
+            raise RuntimeError("resident descend plan layout mismatch")
+        smem = resident_smem_bytes(layout, block_m)
+        entry, weight_args = lib.mogd_descend_resident, (
+            packed.data_ptr(), ctypes.byref(cplan))
+    else:
+        packed, cplan = _pack_weights(plan, folded)
+        if lib.mogd_plan_bytes() != ctypes.sizeof(_Plan):
+            raise RuntimeError("descend kernel plan layout mismatch")
+        smem = _smem_bytes(plan, block_m)
+        entry, weight_args = lib.mogd_descend, (
+            packed.data_ptr(), packed.shape[1], ctypes.byref(cplan))
     if packed.device != x.device:
         raise ValueError(f"descend weights on {packed.device}, rows on "
                          f"{x.device}")
-    lib = native.library()
-    if lib.mogd_plan_bytes() != ctypes.sizeof(_Plan):
-        raise RuntimeError("descend kernel plan layout mismatch")
     out = torch.empty((G, Mp, D), dtype=torch.float32, device=x.device)
-    smem = _smem_bytes(plan, block_m)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.mogd_descend(
+        err = entry(
             ops["x"].data_ptr(), ops["lo"].data_ptr(), ops["hi"].data_ptr(),
             ops["ulo"].data_ptr(), ops["uhi"].data_ptr(),
-            ops["us"].data_ptr(), ops["tsel"].data_ptr(),
-            packed.data_ptr(), packed.shape[1], ctypes.byref(cplan),
+            ops["us"].data_ptr(), ops["tsel"].data_ptr(), *weight_args,
             G, Mp, D, block_m, int(cfg.steps), cfg.lr, cfg.lr_floor,
             (1 - cfg.lr_floor) * 0.5, cfg.adam_b1, 1 - cfg.adam_b1,
             cfg.adam_b2, 1 - cfg.adam_b2, cfg.adam_eps,
             cfg.tie_break_eps * 2.0, smem, out.data_ptr(), stream)
-    native.check(err, "mogd_descend launch")
+    native.check(err, f"mogd_descend launch ({route})")
     LAUNCHES["descend_batch"] += 1
+    ROUTES[f"descend_batch:{route}"] += 1
     return out[:, :M]
 
 

@@ -131,6 +131,13 @@ def library() -> ctypes.CDLL:
                 _I, _F, _F, _F, _F, _F, _F, _F, _F, _F,  # hyperparameters
                 _I, _VP, _VP]  # smem bytes, out, stream
             lib.mogd_descend.restype = _I
+            lib.mogd_descend_resident.argtypes = [
+                _VP, _VP, _VP, _VP, _VP, _VP, _VP,  # x0 + row constants
+                _VP, _VP,  # weight blocks, resident plan
+                _I, _I, _I, _I,  # G, Mp, D, block rows
+                _I, _F, _F, _F, _F, _F, _F, _F, _F, _F,  # hyperparameters
+                _I, _VP, _VP]  # smem bytes, out, stream
+            lib.mogd_descend_resident.restype = _I
             lib.pairwise_compose.argtypes = [
                 _VP, _VP, _I, _I, _I, ctypes.c_uint, _VP, _VP]
             lib.pairwise_compose.restype = _I
@@ -152,6 +159,8 @@ def library() -> ctypes.CDLL:
             lib.mamba_scan.restype = _I
             lib.mogd_plan_bytes.argtypes = []
             lib.mogd_plan_bytes.restype = _I
+            lib.mogd_resident_plan_bytes.argtypes = []
+            lib.mogd_resident_plan_bytes.restype = _I
             lib.repro_cuda_error_string.argtypes = [_I]
             lib.repro_cuda_error_string.restype = ctypes.c_char_p
             _LIB = lib

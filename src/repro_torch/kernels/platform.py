@@ -18,7 +18,14 @@
   can show that its main path went through the kernels.  A plain version
   that a wrapper routes to adds one to :data:`PLAIN_ON_CUDA` when it is
   handed a CUDA tensor, so a run can also show that its path never took
-  the plain version on the card.
+  the plain version on the card.  A kernel with more than one route (by
+  dtype or by shape) also adds one to :data:`ROUTES` under
+  ``"<kernel>:<route>"``, so a run can show which route its path took.
+* **Backward passes.**  Where the reference has no backward kernel (the
+  WKV, flash and scan wrappers), the port's ``autograd.Function`` recomputes
+  through the plain version and differentiates that
+  (:func:`plain_backward`); each such recompute on a CUDA tensor is counted
+  in :data:`PLAIN_BACKWARD_ON_CUDA`, apart from :data:`PLAIN_ON_CUDA`.
 """
 
 from __future__ import annotations
@@ -35,6 +42,10 @@ HOPPER = (9, 0)
 LAUNCHES: collections.Counter = collections.Counter()
 # plain-version name -> calls on a CUDA tensor since the last reset
 PLAIN_ON_CUDA: collections.Counter = collections.Counter()
+# plain-version name -> backward recomputes on a CUDA tensor
+PLAIN_BACKWARD_ON_CUDA: collections.Counter = collections.Counter()
+# "<kernel>:<route>" -> launches by that route
+ROUTES: collections.Counter = collections.Counter()
 
 
 def resolve_device(device=None) -> torch.device:
@@ -72,10 +83,12 @@ def use_kernel(t: torch.Tensor) -> bool:
 
 
 def reset_launches() -> None:
-    """Set every kernel's launch count, and every plain version's count of
-    calls on the card, to 0."""
+    """Set every kernel's launch and route counts, and every plain
+    version's counts of calls and backward recomputes on the card, to 0."""
     LAUNCHES.clear()
     PLAIN_ON_CUDA.clear()
+    PLAIN_BACKWARD_ON_CUDA.clear()
+    ROUTES.clear()
 
 
 def launch_counts() -> dict:
@@ -86,3 +99,38 @@ def launch_counts() -> dict:
 def plain_on_cuda_counts() -> dict:
     """A copy of the plain versions' call counts on CUDA tensors."""
     return dict(PLAIN_ON_CUDA)
+
+
+def plain_backward_on_cuda_counts() -> dict:
+    """A copy of the plain versions' backward recompute counts on CUDA
+    tensors."""
+    return dict(PLAIN_BACKWARD_ON_CUDA)
+
+
+def route_counts() -> dict:
+    """A copy of the launch counts by ``"<kernel>:<route>"``."""
+    return dict(ROUTES)
+
+
+def plain_backward(plain, inputs, needs, grad_outputs) -> tuple:
+    """The gradients of ``plain(*inputs)`` with respect to the inputs whose
+    ``needs`` is true (None for the others), given the gradients of its
+    outputs: ``plain`` is run again under ``torch.enable_grad()`` on
+    detached copies of the inputs and differentiated with
+    ``torch.autograd.grad``.  ``plain`` counts itself (it is handed
+    :data:`PLAIN_BACKWARD_ON_CUDA` as its counter)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(bool(n))
+                  if isinstance(t, torch.Tensor) else t
+                  for t, n in zip(inputs, needs)]
+        outs = plain(*leaves)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        wrt = [t for t, n in zip(leaves, needs)
+               if n and isinstance(t, torch.Tensor)]
+        pairs = [(o, g) for o, g in zip(outs, grad_outputs)
+                 if o.requires_grad and g is not None]
+        got = iter(torch.autograd.grad(
+            [o for o, _ in pairs], wrt, [g for _, g in pairs],
+            allow_unused=True) if pairs and wrt else [None] * len(wrt))
+    return tuple(next(got) if n and isinstance(t, torch.Tensor) else None
+                 for t, n in zip(inputs, needs))

@@ -121,14 +121,15 @@ def pairwise_compose(FA, FB, add_mask):
     return comp.reshape(-1, FA.shape[-1])
 
 
-def flash_attention(q, k, v, causal=True):
+def flash_attention(q, k, v, causal=True, counts=PLAIN_ON_CUDA):
     """q/k/v: (B, S, H, dh) with H == Hk (GQA repeated upstream).  Softmax
     attention with scale ``dh**-0.5``, scores and softmax in fp32, the
     probabilities cast to ``v``'s dtype for the second product.  The plain
     version of ``csrc/flash_attention.cu``: a call on a CUDA tensor is
-    counted in ``platform.PLAIN_ON_CUDA``."""
+    counted in ``counts`` (``platform.PLAIN_ON_CUDA``, or
+    ``platform.PLAIN_BACKWARD_ON_CUDA`` for a backward's recompute)."""
     if q.device.type == "cuda":
-        PLAIN_ON_CUDA["flash_attention"] += 1
+        counts["flash_attention"] += 1
     S, dh = q.shape[1], q.shape[-1]
     s = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * (dh ** -0.5)
     if causal:
@@ -138,16 +139,16 @@ def flash_attention(q, k, v, causal=True):
     return torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v)
 
 
-def rwkv6_wkv(r, k, v, w, u, S0=None):
+def rwkv6_wkv(r, k, v, w, u, S0=None, counts=PLAIN_ON_CUDA):
     """r/k/v/w: (B, T, H, dh) fp32; u: (H, dh); S0: (B, H, dh, dh) or None
     (zeros).  Returns (y (B, T, H, dh), S_final (B, H, dh, dh)).
 
     y_t = r_t^T (S_{t-1} + diag(u) k_t v_t^T);  S_t = diag(w_t) S_{t-1} +
     k_t v_t^T — the sequential loop, one step at a time.  The plain version
     of ``csrc/rwkv6_wkv.cu``: a call on a CUDA tensor is counted in
-    ``platform.PLAIN_ON_CUDA``."""
+    ``counts`` (as :func:`flash_attention`'s)."""
     if r.device.type == "cuda":
-        PLAIN_ON_CUDA["rwkv6_wkv"] += 1
+        counts["rwkv6_wkv"] += 1
     B, T, H, dh = r.shape
     S = (torch.zeros((B, H, dh, dh), dtype=torch.float32, device=r.device)
          if S0 is None else S0)
@@ -162,16 +163,16 @@ def rwkv6_wkv(r, k, v, w, u, S0=None):
     return y, S
 
 
-def mamba_scan(dt, Bt, Ct, xs, A, h0=None):
+def mamba_scan(dt, Bt, Ct, xs, A, h0=None, counts=PLAIN_ON_CUDA):
     """dt/xs: (B, T, d) fp32; Bt/Ct: (B, T, n); A: (d, n); h0: (B, d, n)
     or None (zeros).  Returns (y (B, T, d), h_final (B, d, n)).
 
     h_t = exp(dt_t A) * h_{t-1} + (dt_t x_t) B_t;  y_t = h_t . C_t — the
     sequential loop, one step at a time.  The plain version of
     ``csrc/mamba_scan.cu``: a call on a CUDA tensor is counted in
-    ``platform.PLAIN_ON_CUDA``."""
+    ``counts`` (as :func:`flash_attention`'s)."""
     if xs.device.type == "cuda":
-        PLAIN_ON_CUDA["mamba_scan"] += 1
+        counts["mamba_scan"] += 1
     B, T, d = xs.shape
     h = (torch.zeros((B, d, A.shape[1]), dtype=torch.float32,
                      device=xs.device) if h0 is None else h0)

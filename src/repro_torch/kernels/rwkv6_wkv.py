@@ -7,9 +7,16 @@ model's layers.  The CUDA kernel in ``csrc/rwkv6_wkv.cu`` keeps each head's
 the time mix's ``(B, T, H, dh)`` layout through their strides; its header
 gives the design and the bound.
 
-:func:`rwkv6_wkv` routes on the device of its inputs: CUDA tensors launch
-the kernel (:func:`rwkv6_wkv_cuda`), CPU tensors take the plain version
-(``kernels.ref.rwkv6_wkv``, the sequential loop).
+:func:`rwkv6_wkv` is differentiable (:class:`RWKV6WKV`).  Its forward
+routes on the device of its inputs: CUDA tensors launch the kernel
+(:func:`rwkv6_wkv_cuda`), CPU tensors take the plain version
+(``kernels.ref.rwkv6_wkv``, the sequential loop).  Its backward recomputes
+through the plain version under ``enable_grad`` and differentiates that
+(``platform.plain_backward``; counted in ``PLAIN_BACKWARD_ON_CUDA`` on the
+card): the reference has no backward kernel either, its model code
+differentiating plain ``jax`` ops.  Both outputs carry a gradient: the
+final state of a prefill feeds the decode cache, so a loss through the
+cached state reaches r, k, v, w, u and S0.
 """
 
 from __future__ import annotations
@@ -19,7 +26,12 @@ import ctypes
 import torch
 
 from . import native, ref
-from .platform import LAUNCHES, use_kernel
+from .platform import (
+    LAUNCHES,
+    PLAIN_BACKWARD_ON_CUDA,
+    plain_backward,
+    use_kernel,
+)
 
 HEAD_SIZES = (16, 32, 64, 128)  # the kernel's compile-time head sizes
 
@@ -90,10 +102,34 @@ def rwkv6_wkv_cuda(r, k, v, w, u, S0=None):
     return y, S_out
 
 
+def _plain_for_backward(r, k, v, w, u, S0):
+    return ref.rwkv6_wkv(r, k, v, w, u, S0, counts=PLAIN_BACKWARD_ON_CUDA)
+
+
+class RWKV6WKV(torch.autograd.Function):
+    """``apply(r, k, v, w, u, S0)`` -> ``(y, S_final)``: the kernel on CUDA
+    tensors, the plain loop on CPU tensors; the backward differentiates the
+    plain loop, recomputed (no backward kernel)."""
+
+    @staticmethod
+    def forward(r, k, v, w, u, S0):
+        if use_kernel(r):
+            return rwkv6_wkv_cuda(r, k, v, w, u, S0)
+        return ref.rwkv6_wkv(r, k, v, w, u, S0)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)  # views as given: no copy
+
+    @staticmethod
+    def backward(ctx, gy, gS):
+        return plain_backward(_plain_for_backward, ctx.saved_tensors,
+                              ctx.needs_input_grad, (gy, gS))
+
+
 def rwkv6_wkv(r, k, v, w, u, S0=None):
     """r/k/v/w: ``(B, T, H, dh)`` float32; u: ``(H, dh)``; S0: ``(B, H, dh,
     dh)`` or None (zeros) -> ``(y, S_final)``.  The kernel on CUDA tensors,
-    the plain sequential loop on CPU tensors."""
-    if use_kernel(r):
-        return rwkv6_wkv_cuda(r, k, v, w, u, S0)
-    return ref.rwkv6_wkv(r, k, v, w, u, S0)
+    the plain sequential loop on CPU tensors; differentiable in every
+    tensor input (:class:`RWKV6WKV`)."""
+    return RWKV6WKV.apply(r, k, v, w, u, S0)

@@ -57,6 +57,17 @@ HYBRID = ("jamba-v0.1-52b", "qwen2-moe-a2.7b", "grok-1-314b")
 ARCH_OF = {rconfigs.get_smoke(a).name: a for a in HYBRID}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file: the suite runs in parallel worker
+    processes that idle torch threads would slow (the deadline tests of
+    other files among them)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(a) -> np.ndarray:
     if isinstance(a, torch.Tensor):
         return a.detach().float().cpu().numpy()

@@ -447,3 +447,236 @@ class TestMambaScanOnCard:
             mamba_scan_cuda(dt, torch.zeros(1, 4, 65, device=cuda_device),
                             torch.zeros(1, 4, 65, device=cuda_device), xs,
                             torch.zeros(8, 65, device=cuda_device))
+
+
+# ---------------------------------------------------------------------------
+# Flash attention's bf16 route on the tensor cores, at the reference's bf16
+# bar (tests/test_kernels.py::TestFlashAttention, 2e-2)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+class TestFlashWgmmaOnCard:
+    @pytest.mark.parametrize("S", [16, 64, 100, 512, 4096])
+    @pytest.mark.parametrize("dh", [16, 32, 64, 128])
+    @pytest.mark.parametrize("groups", [1, 4])
+    @pytest.mark.parametrize("causal", [True, False])
+    def test_equals_plain(self, cuda_device, S, dh, groups, causal):
+        from repro_torch.kernels.flash_attention import (
+            flash_attention_cuda,
+            flash_attention_plain,
+        )
+
+        q, k, v = _attn_case(1, S, 4, 4 // groups, dh, torch.bfloat16,
+                             S + dh + groups, cuda_device)
+        before = platform.route_counts().get("flash_attention:wgmma", 0)
+        got = flash_attention_cuda(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert platform.route_counts()["flash_attention:wgmma"] == before + 1
+        assert got.dtype == torch.bfloat16 and got.shape == q.shape
+        np.testing.assert_allclose(
+            got.float().cpu().numpy(),
+            flash_attention_plain(q, k, v, causal).float().cpu().numpy(),
+            rtol=2e-2, atol=2e-2)
+
+    def test_routes_by_dtype(self, cuda_device):
+        from repro_torch.kernels.flash_attention import flash_attention, route
+
+        platform.reset_launches()
+        for dtype in (torch.bfloat16, torch.float32, torch.bfloat16):
+            q, k, v = _attn_case(1, 70, 8, 2, 128, dtype, 5, cuda_device)
+            flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        assert route(torch.bfloat16) == "wgmma"
+        assert route(torch.float32) == "cuda_cores"
+        assert platform.route_counts() == {"flash_attention:wgmma": 2,
+                                           "flash_attention:cuda_cores": 1}
+        assert platform.launch_counts() == {"flash_attention": 3}
+        assert not platform.plain_on_cuda_counts()
+
+    def test_reads_misaligned_inputs(self, cuda_device):
+        """A view that starts off a 16-byte boundary is copied, not read
+        unaligned."""
+        from repro_torch.kernels.flash_attention import (
+            flash_attention_cuda,
+            flash_attention_plain,
+        )
+
+        q, k, v = _attn_case(1, 40, 4, 2, 64, torch.bfloat16, 8, cuda_device)
+        flat = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda_device)
+        q1 = flat[1:].view_as(q).copy_(q)
+        assert q1.data_ptr() % 16
+        np.testing.assert_allclose(
+            flash_attention_cuda(q1, k, v).float().cpu().numpy(),
+            flash_attention_plain(q, k, v).float().cpu().numpy(),
+            rtol=2e-2, atol=2e-2)
+
+
+# ---------------------------------------------------------------------------
+# Backward of the three LM-kernel wrappers through the kernel route: the
+# gradients equal autograd through the plain twin, at each kernel's forward
+# tolerance (WKV and scan 3e-4, flash 2e-3 fp32 / 2e-2 bf16), and the
+# recompute is counted apart from the forward's plain calls
+# ---------------------------------------------------------------------------
+
+
+def _grads(fn, inputs, weights):
+    leaves = [t.detach().requires_grad_(True) if t is not None else None
+              for t in inputs]
+    outs = fn(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    loss = sum((o.float() * w).sum() for o, w in zip(outs, weights))
+    wrt = [t for t in leaves if t is not None]
+    return torch.autograd.grad(loss, wrt)
+
+
+def _weights_like(outs, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.tensor(rng.normal(size=tuple(o.shape)), dtype=torch.float32,
+                         device=o.device) for o in outs]
+
+
+@pytest.mark.cuda
+class TestBackwardOnCard:
+    def _check(self, name, fn, plain, inputs, tol):
+        outs = plain(*inputs)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        weights = _weights_like(outs, 3)
+        platform.reset_launches()
+        got = _grads(fn, inputs, weights)
+        torch.cuda.synchronize()
+        assert platform.launch_counts() == {name: 1}
+        assert platform.plain_backward_on_cuda_counts() == {name: 1}
+        assert not platform.plain_on_cuda_counts()
+        want = _grads(plain, inputs, weights)
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(a.float().cpu().numpy(),
+                                       b.float().cpu().numpy(), rtol=tol,
+                                       atol=tol)
+
+    @pytest.mark.parametrize("state", [False, True])
+    def test_wkv(self, cuda_device, state):
+        from repro_torch.kernels.rwkv6_wkv import rwkv6_wkv
+
+        args = _wkv_case(2, 19, 3, 32, 4, cuda_device, state)
+        self._check("rwkv6_wkv", rwkv6_wkv, ref.rwkv6_wkv, args, 3e-4)
+
+    @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-3),
+                                           (torch.bfloat16, 2e-2)])
+    def test_flash(self, cuda_device, dtype, tol):
+        from repro_torch.kernels.flash_attention import (
+            flash_attention,
+            flash_attention_plain,
+        )
+
+        args = _attn_case(2, 45, 4, 2, 32, dtype, 6, cuda_device)
+        self._check("flash_attention", flash_attention,
+                    flash_attention_plain, args, tol)
+
+    @pytest.mark.parametrize("state", [False, True])
+    def test_scan(self, cuda_device, state):
+        from repro_torch.kernels.mamba_scan import mamba_scan
+
+        args = _scan_case(2, 23, 40, 8, 5, cuda_device, state)
+        self._check("mamba_scan", mamba_scan, ref.mamba_scan, args, 3e-4)
+
+
+# ---------------------------------------------------------------------------
+# The descend kernel's routes: the resident cluster at the paper's width
+# (chip_smoke.py's three checks at a small G) and the streaming route for a
+# plan too wide for the cluster
+# ---------------------------------------------------------------------------
+
+GATE = 1e-3  # the executor's fused-vs-scan parity tolerance
+
+
+def _paper_case(G, R, S, dims, seed, dev):
+    """descend_batch inputs at ``dims``: mixed log targets and signs, user
+    bounds on objective 0 (chip_smoke.py's ``descend_case``)."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32,  # noqa: E731
+                               device=dev)
+    D, k = dims[0], 2
+    params = []
+    for _ in range(k):
+        layers = [{"w": t(rng.normal(size=(G, dims[i], dims[i + 1]))
+                          * np.sqrt(2.0 / dims[i])),
+                   "b": t(rng.normal(size=(G, dims[i + 1])) * 0.05)}
+                  for i in range(len(dims) - 1)]
+        params.append({"layers": layers,
+                       "x_mean": t(rng.random((G, D)) * 0.2),
+                       "x_std": t(np.exp(rng.normal(size=(G, D)) * 0.2)),
+                       "y_mean": t(rng.normal(size=G) * 0.1),
+                       "y_std": t(np.exp(rng.normal(size=G) * 0.2) * 0.3)})
+    los = rng.normal(size=(G, R, k)) * 0.5 - 1.0
+    his = los + np.exp(rng.normal(size=(G, R, k))) * 2.0
+    ulos = np.full((G, R, k), -np.inf)
+    uhis = np.full((G, R, k), np.inf)
+    ulos[..., 0], uhis[..., 0] = los[..., 0] - 0.5, his[..., 0] + 0.5
+    batch = (t(rng.random((G, R, S, D))), t(los), t(his), t(ulos), t(uhis),
+             t(np.ones((G, R, k))),
+             torch.tensor(rng.integers(0, k, size=(G, R)), device=dev))
+    plan = DescendPlan((tuple(dims),) * k, (False, True), (1.0, -1.0))
+    return plan, tuple(params), batch
+
+
+def _rows_apart(a, b):
+    return ((a - b).abs().amax(-1).reshape(a.shape[0], -1) > GATE).sum(-1)
+
+
+@pytest.mark.cuda
+class TestDescendRoutesOnCard:
+    def _strict(self, plan, params, batch, route, S):
+        import dataclasses
+
+        from repro_torch.kernels.mogd_descend import descend_route, sm_count
+
+        G, R = batch[0].shape[:2]
+        assert descend_route(plan, G, R * S,
+                             sm_count(batch[0].device))[0] == route
+        cfg = MOGDConfig(multistart=S)
+        cases = [dataclasses.replace(cfg, steps=n) for n in (1, 10)]
+        cases += [dataclasses.replace(cfg, steps=1, adam_eps=1e6,
+                                      lr=ratio * 1e6)
+                  for ratio in (1e-3, 1e-2, 1e-1, 1.0)]
+        for c in cases:
+            platform.reset_launches()
+            got = descend_batch(plan, c, params, *batch)
+            torch.cuda.synchronize()
+            assert platform.route_counts() == {f"descend_batch:{route}": 1}
+            want = descend_batch_plain(plan, c, params, *batch)
+            assert torch.isfinite(got).all()
+            assert float((got - want).abs().max()) <= GATE, (c.steps, c.lr)
+
+    def test_resident_paper_width(self, cuda_device):
+        plan, params, batch = _paper_case(4, 4, 16, (13, 128, 128, 128, 128,
+                                                     1), 0, cuda_device)
+        self._strict(plan, params, batch, "resident", 16)
+        cfg = MOGDConfig(multistart=16)  # 120 steps
+        got = descend_batch(plan, cfg, params, *batch)
+        want = descend_batch_plain(plan, cfg, params, *batch)
+        host = descend_batch_plain(
+            plan, cfg, tuple({key: ([{n: a.cpu() for n, a in ly.items()}
+                                     for ly in val] if key == "layers"
+                                    else val.cpu())
+                              for key, val in p.items()} for p in params),
+            *(b.cpu() for b in batch))
+        kp, ph = _rows_apart(got.cpu(), want.cpu()), _rows_apart(
+            want.cpu(), host)
+        assert int(kp.sum()) <= 2 * int(ph.sum())
+        assert int(kp.max()) <= 2 * int(ph.max()) + 1
+
+    def test_resident_splits_rows_of_a_small_batch(self, cuda_device):
+        """One group, 40 rows: clusters of 16 rows, the last one padded."""
+        from repro_torch.kernels.mogd_descend import descend_route, sm_count
+
+        plan, params, batch = _paper_case(1, 5, 8, (13, 64, 64, 1), 1,
+                                          cuda_device)
+        assert descend_route(plan, 1, 40, sm_count(cuda_device)) == (
+            "resident", 16)
+        self._strict(plan, params, batch, "resident", 8)
+
+    def test_too_wide_plan_streams(self, cuda_device):
+        plan, params, batch = _paper_case(2, 2, 4, (13, 512, 512, 1), 2,
+                                          cuda_device)
+        self._strict(plan, params, batch, "streaming", 4)

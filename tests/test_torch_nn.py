@@ -61,6 +61,17 @@ BF16_REL, BF16_MARGIN = 2.5e-2, 0.0625
 PORTED = list(rconfigs.ARCH_IDS)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file: the suite runs in parallel worker
+    processes that idle torch threads would slow (the deadline tests of
+    other files among them)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(a) -> np.ndarray:
     if isinstance(a, torch.Tensor):
         return a.detach().float().cpu().numpy()

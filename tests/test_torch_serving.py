@@ -30,6 +30,17 @@ MAX_NEW = (6, 9, 4, 7, 5, 8)
 MAX_SEQ = 40
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file: the suite runs in parallel worker
+    processes that idle torch threads would slow (the deadline tests of
+    other files among them)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _requests(mod, vocab, seed=0):
     rng = np.random.default_rng(seed)
     return [mod.Request(rid=i, prompt=rng.integers(0, vocab, n).astype(
