@@ -36,14 +36,19 @@ Phases (any failure exits non-zero; nothing is caught and turned into 0):
    one workload until drift fires, the inline retrain to v2 and the warm
    re-solve of its session.
 7. LM serving at full width, weights random from a seed: ``rwkv6_wkv``
-   (RWKV-6 3B's 40 heads of 64: a 512-token prefill, a decode step from a
-   nonzero state, 37 steps), ``flash_attention`` (Qwen3-4B's 32/8 heads of
-   128, S = 16, 37, 512, 4096, bf16 and fp32, one non-causal case) and
+   (RWKV-6 3B's 40 heads of 64: a 512-token prefill at B = 1 and B = 4,
+   which take the kernel's two layouts, a decode step from a nonzero
+   state, 37 steps), ``flash_attention`` (Qwen3-4B's 32/8 heads of 128, S
+   = 16, 37, 512, 4096, bf16 and fp32, one non-causal case) and
    ``mamba_scan`` (Jamba's d_inner 8192 with 16 states: a 512-token
-   prefill from zero and from a nonzero state, a decode step, 37 steps)
-   against their plain versions and timed (SDPA timed beside flash as a
-   yardstick only); then for ``rwkv6-3b`` (32 layers), ``qwen3-4b`` (36),
-   ``jamba-v0.1-52b`` and ``qwen2-moe-a2.7b`` (24) in turn:
+   prefill from zero and from a nonzero state, at B = 4 from zero, a
+   decode step, 37 steps) against their plain versions and timed (SDPA
+   timed beside flash as a yardstick only); WKV on each of its layouts
+   at T = 512, B = 1 and 4 (the wrapper's choice beside the other); the
+   host side of a decode call of both, piece by piece
+   (``decode_host_pieces``); then for ``rwkv6-3b`` (32 layers),
+   ``qwen3-4b`` (36), ``jamba-v0.1-52b`` and ``qwen2-moe-a2.7b`` (24) in
+   turn:
    ``init_params`` on the card; in fp32 compute, 16 decode steps from an
    empty cache and one decode step from a 16-token prefill's cache against
    the full forward; then ``ServeEngine`` in bf16 serving 8 requests over
@@ -67,7 +72,10 @@ and ``mlp_forward`` (the fused surrogate forward), its gradients and a
 ``vmap(grad)`` through ``MLPRegressor`` to theirs.
 
 Standard output ends with the service, model-server and LM-serving summary
-lines, the kernels' JSON record (seven kernels) and the device JSON line.  Without a CUDA device, or outside the repository, the
+lines, the decode calls' host pieces, the kernels' JSON record (seven
+kernels; WKV and the scan with their decode call's times beside the
+prefill's, the scan's bound counting its exps on the SFUs) and the device
+JSON line.  Without a CUDA device, or outside the repository, the
 script exits non-zero and prints no result.
 """
 
@@ -88,6 +96,10 @@ SRC = ROOT / "src"
 # the fp32 rate outside the tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
+# accurate expf: one MUFU.EX2 each, 16 a clock an SM against 128 fp32 FMA
+# lanes (CUDA C Programming Guide, arithmetic instruction throughput,
+# compute capability 9.0), at the clock of the fp32 peak
+PEAK_SFU_S = PEAK_FP32_S / 16
 
 PAPER_HIDDEN = (128, 128, 128, 128)
 GATE = 1e-3  # the executor's fused-vs-scan parity tolerance
@@ -639,10 +651,11 @@ def phase_descend(dev, G=64, R=4, S=16, reps=3) -> dict:
     )
 
     from repro_torch.kernels import platform
-    from repro_torch.kernels.mogd_descend import descend_route, sm_count
+    from repro_torch.kernels.mogd_descend import descend_route
 
     plan, cfg, params, batch = descend_case(dev, G, R, S)
-    route, cluster_rows = descend_route(plan, G, R * S, sm_count(dev))
+    route, cluster_rows = descend_route(plan, G, R * S,
+                                        platform.sm_count(dev.index))
     if route != "resident":
         fail(f"descend at the paper shape takes the {route} route")
 
@@ -1337,13 +1350,22 @@ def phase_modelserver(dev, n_workloads: int = MS_WORKLOADS,
 # ---------------------------------------------------------------------------
 
 
-def _bound(flops: float, nbytes: float, peak_flops: float) -> dict:
-    """The least time of ``flops`` at ``peak_flops`` and ``nbytes`` at the
-    HBM rate, in ms, and which of the two bounds it."""
-    t_ops = flops / peak_flops * 1e3
+def _bound(flops: float, nbytes: float, peak_flops: float,
+           sfu_ops: float = 0.0) -> dict:
+    """The least time of ``flops`` at ``peak_flops``, ``sfu_ops`` (exps) at
+    the SFUs' rate and ``nbytes`` at the HBM rate, in ms, and which bounds
+    it ("operations" for either kind of operation; ``bound_terms_ms`` has
+    each term)."""
+    t_flops = flops / peak_flops * 1e3
+    t_sfu = sfu_ops / PEAK_SFU_S * 1e3
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    return {"bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    t_ops = max(t_flops, t_sfu)
+    out = {"bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    if sfu_ops:
+        out["bound_terms_ms"] = {"bytes": t_bytes, "fp32": t_flops,
+                                 "sfu": t_sfu}
+    return out
 
 
 def _wkv_inputs(dev, B: int, T: int, H: int, dh: int, seed: int,
@@ -1374,32 +1396,34 @@ def _attn_inputs(dev, S: int, dtype, seed: int, H=LM_HEADS, Hk=LM_KV_HEADS,
 
 
 def _scan_inputs(dev, T: int, seed: int, state: bool, d=LM_SCAN_D,
-                 n=LM_SCAN_N):
+                 n=LM_SCAN_N, B=1):
     """dt = softplus(N), B_t, C_t, x normal, A = -exp(0.3 N) and, with
     ``state``, a nonzero h0 (``tests/test_kernels.py::TestMambaScan``'s
-    draws), at B = 1."""
+    draws)."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(seed)
     f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
-    dt = f32(np.logaddexp(rng.normal(size=(1, T, d)), 0))
-    Bt, Ct = (f32(rng.normal(size=(1, T, n))) for _ in range(2))
-    xs = f32(rng.normal(size=(1, T, d)))
+    dt = f32(np.logaddexp(rng.normal(size=(B, T, d)), 0))
+    Bt, Ct = (f32(rng.normal(size=(B, T, n))) for _ in range(2))
+    xs = f32(rng.normal(size=(B, T, d)))
     A = f32(-np.exp(rng.normal(size=(d, n)) * 0.3))
-    h0 = f32(rng.normal(size=(1, d, n)) * 0.5) if state else None
+    h0 = f32(rng.normal(size=(B, d, n)) * 0.5) if state else None
     return dt, Bt, Ct, xs, A, h0
 
 
 def phase_lm_kernels(dev) -> dict:
     """rwkv6_wkv and flash_attention against their plain versions at the LM
     path's shapes: WKV at RWKV-6 3B's 40 heads of 64 (a 512-token prefill
-    from zero, a decode step and an odd 37-step run from a nonzero state;
-    y and the final state at 3e-4), flash at Qwen3-4B's 32/8 heads of 128
-    (S = 16, 37, 512, 4096; bf16 at 2e-2, fp32 at 2e-3; one non-causal
-    case); mamba_scan at Jamba's d_inner 8192 and 16 states (a 512-token
-    prefill from zero and from a nonzero state, a decode step and an odd
-    37-step run from a state; y and the final state at 3e-4)."""
+    from zero at B = 1 and at B = 4, the two layouts of the kernel, a
+    decode step and an odd 37-step run from a nonzero state; y and the
+    final state at 3e-4), flash at Qwen3-4B's 32/8 heads of 128 (S = 16,
+    37, 512, 4096; bf16 at 2e-2, fp32 at 2e-3; one non-causal case);
+    mamba_scan at Jamba's d_inner 8192 and 16 states (a 512-token prefill
+    from zero and from a nonzero state, at B = 1 and from zero at B = 4,
+    the two lane layouts of the kernel; a decode step and an odd 37-step
+    run from a state; y and the final state at 3e-4)."""
     import torch
 
     from repro_torch.kernels import ref
@@ -1411,13 +1435,14 @@ def phase_lm_kernels(dev) -> dict:
     from repro_torch.kernels.rwkv6_wkv import rwkv6_wkv_cuda
 
     wkv_err = 0.0
-    for T, state in ((512, False), (1, True), (37, True)):
-        args = _wkv_inputs(dev, 1, T, LM_WKV_HEADS, LM_WKV_DH, T, state)
+    for B, T, state in ((1, 512, False), (4, 512, False), (1, 1, True),
+                        (1, 37, True)):
+        args = _wkv_inputs(dev, B, T, LM_WKV_HEADS, LM_WKV_DH, T + B, state)
         y, S = rwkv6_wkv_cuda(*args)
         want_y, want_S = ref.rwkv6_wkv(*args)
-        wkv_err = max(wkv_err,
-                      _close(y, want_y, LM_WKV_TOL, f"rwkv6_wkv T={T} y"),
-                      _close(S, want_S, LM_WKV_TOL, f"rwkv6_wkv T={T} S"))
+        label = f"rwkv6_wkv B={B} T={T}"
+        wkv_err = max(wkv_err, _close(y, want_y, LM_WKV_TOL, f"{label} y"),
+                      _close(S, want_S, LM_WKV_TOL, f"{label} S"))
     flash_err = {}
     for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 2e-3)):
         worst = 0.0
@@ -1436,11 +1461,12 @@ def phase_lm_kernels(dev) -> dict:
         flash_attention_plain(q, k, v, causal=False), 2e-3,
         "flash_attention non-causal")
     scan_err = 0.0
-    for T, state in ((512, False), (512, True), (1, True), (37, True)):
-        args = _scan_inputs(dev, T, T + int(state), state)
+    for B, T, state in ((1, 512, False), (1, 512, True), (4, 512, False),
+                        (1, 1, True), (1, 37, True)):
+        args = _scan_inputs(dev, T, T + int(state) + B, state, B=B)
         y, h = mamba_scan_cuda(*args)
         want_y, want_h = ref.mamba_scan(*args)
-        label = f"mamba_scan T={T}{' from h0' if state else ''}"
+        label = f"mamba_scan B={B} T={T}{' from h0' if state else ''}"
         scan_err = max(scan_err,
                        _close(y, want_y, LM_SCAN_TOL, f"{label} y"),
                        _close(h, want_h, LM_SCAN_TOL, f"{label} h_fin"))
@@ -1449,43 +1475,156 @@ def phase_lm_kernels(dev) -> dict:
     return {"wkv_err": wkv_err, "flash_err": flash_err, "scan_err": scan_err}
 
 
-def wkv_timing(dev, T: int, state: bool, reps: int) -> dict:
-    """Kernel and plain times of rwkv6_wkv at B=1, RWKV-6 3B's heads."""
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.rwkv6_wkv import rwkv6_wkv_cuda
+@contextlib.contextmanager
+def forced(module, name: str, value):
+    """``module.name`` (a layout choice the wrapper looks up at each call)
+    answering ``value`` whatever it is asked, for an in-run comparison of a
+    kernel's layouts; the port's own choice is restored on exit."""
+    chosen = getattr(module, name)
+    setattr(module, name, lambda *args: value)
+    try:
+        yield
+    finally:
+        setattr(module, name, chosen)
+
+
+def wkv_timing(dev, T: int, state: bool, reps: int, B: int = 1,
+               plain: bool = True) -> dict:
+    """Kernel and plain times of rwkv6_wkv at RWKV-6 3B's heads, and the
+    layout the wrapper chose."""
+    from repro_torch.kernels import platform, ref
+    from repro_torch.kernels.rwkv6_wkv import rwkv6_wkv_cuda, wkv_split
 
     H, dh = LM_WKV_HEADS, LM_WKV_DH
-    args = _wkv_inputs(dev, 1, T, H, dh, 7, state)
+    args = _wkv_inputs(dev, B, T, H, dh, 7, state)
     ms = time_ms(lambda: rwkv6_wkv_cuda(*args), reps)
-    plain_ms = time_ms(lambda: ref.rwkv6_wkv(*args), max(2, reps // 20))
-    nbytes = 4 * (5 * T * H * dh + (2 if state else 1) * H * dh * dh
+    plain_ms = (time_ms(lambda: ref.rwkv6_wkv(*args), max(2, reps // 20))
+                if plain else None)
+    nbytes = 4 * (5 * B * T * H * dh + (2 if state else 1) * B * H * dh * dh
                   + H * dh)
     # per step and head: y_j = sum_i r_i S_ij (dh^2 FMAs; the u-term is
     # O(dh)) and S = w * S + k v^T (a multiply and an FMA per element):
     # 3 dh^2 instructions, 6 dh^2 flops at the FMA-counted fp32 peak
-    return {"shape": [1, T, H, dh], "state": state, "ms": ms,
+    split = wkv_split(B * H, platform.sm_count(dev.index))
+    return {"shape": [B, T, H, dh], "state": state, "ms": ms,
             "plain_ms": plain_ms, "library_ms": None,
-            **_bound(6.0 * T * H * dh * dh, nbytes, PEAK_FP32_S)}
+            "layout": "split" if split else "whole",
+            **_bound(6.0 * B * T * H * dh * dh, nbytes, PEAK_FP32_S)}
 
 
-def scan_timing(dev, T: int, state: bool, reps: int) -> dict:
-    """Kernel and plain times of mamba_scan at B=1, Jamba's d_inner and
-    d_state (no single PyTorch call computes a selective scan)."""
+def wkv_layouts(dev, reps: int = 50) -> dict:
+    """The WKV kernel at T = 512 on each layout, at B = 1 and B = 4 (B*H
+    below and above the SM count): ms by layout, beside the wrapper's
+    choice."""
+    from repro_torch.kernels import platform
+    from repro_torch.kernels import rwkv6_wkv as rk
+
+    out = {}
+    for B in (1, 4):
+        row = {}
+        for layout in ("split", "whole"):
+            with forced(rk, "wkv_split", layout == "split"):
+                row[layout] = wkv_timing(dev, 512, False, reps, B=B,
+                                         plain=False)["ms"]
+        row["chosen"] = ("split" if rk.wkv_split(
+            B * LM_WKV_HEADS, platform.sm_count(dev.index)) else "whole")
+        out[f"B{B}"] = row
+    return out
+
+
+def scan_timing(dev, T: int, state: bool, reps: int, B: int = 1,
+                plain: bool = True) -> dict:
+    """Kernel and plain times of mamba_scan at Jamba's d_inner and d_state
+    (no single PyTorch call computes a selective scan)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.mamba_scan import mamba_scan_cuda
 
     d, n = LM_SCAN_D, LM_SCAN_N
-    args = _scan_inputs(dev, T, 7, state)
+    args = _scan_inputs(dev, T, 7, state, B=B)
     ms = time_ms(lambda: mamba_scan_cuda(*args), reps)
-    plain_ms = time_ms(lambda: ref.mamba_scan(*args), max(2, reps // 20))
+    plain_ms = (time_ms(lambda: ref.mamba_scan(*args), max(2, reps // 20))
+                if plain else None)
     # dt, x and y; B_t and C_t; A; h_fin (and h0)
-    nbytes = 4 * (3 * T * d + 2 * T * n + (2 if state else 1) * d * n
-                  + d * n)
+    nbytes = 4 * (3 * B * T * d + 2 * B * T * n
+                  + (2 if state else 1) * B * d * n + d * n)
     # per step, channel and state: dt*A, dA*h, (dt x)*B, the add and the
-    # FMA of y (an exp besides, on the SFUs): 6 flops at the fp32 peak
-    return {"shape": [1, T, d, n], "state": state, "ms": ms,
+    # FMA of y, 6 flops at the fp32 peak; and one accurate expf, one
+    # MUFU.EX2 on the SFUs
+    return {"shape": [B, T, d, n], "state": state, "ms": ms,
             "plain_ms": plain_ms, "library_ms": None,
-            **_bound(6.0 * T * d * n, nbytes, PEAK_FP32_S)}
+            **_bound(6.0 * B * T * d * n, nbytes, PEAK_FP32_S,
+                     sfu_ops=float(B * T * d * n))}
+
+
+def _us_per_call(fn, reps: int) -> float:
+    """Microseconds a call of ``fn()`` back to back on the host's clock
+    (``time.perf_counter``) over ``reps`` calls after 50 warm-up calls; the
+    device is synchronised before the first and after the last."""
+    import torch
+
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e6
+
+
+def decode_host_pieces(dev, reps: int = 2000) -> dict:
+    """The host side of a decode call of each recurrence wrapper, piece by
+    piece, in microseconds a call (``_us_per_call``, ``reps`` calls each):
+    WKV at RWKV-6 3B's 1 x 1 x 40 x 64 from a state, the scan at Jamba's
+    1 x 1 x 8192 x 16 from a state.  The pieces are the wrapper's own:
+    ``_check``, the copies (``contiguous`` of every input, no-ops here),
+    two ``new_empty``, ``_pack``, the current-device check, the raw
+    stream, the foreign call with its launch, ``native.check``.  ``call``
+    is the wrapper back to back, ``apply`` its ``autograd.Function`` (what
+    the model calls) and ``ops`` the model's entry point in
+    ``kernels.ops``."""
+    import torch
+
+    from repro_torch.kernels import mamba_scan as msc
+    from repro_torch.kernels import native, ops, platform
+    from repro_torch.kernels import rwkv6_wkv as rk
+
+    lib = native.library()
+    idx = dev.index
+    t = lambda fn: _us_per_call(fn, reps)  # noqa: E731
+
+    def pieces(mod, args, outs, extra, fn):
+        tensors = [x for x in args if x is not None]
+        packed = mod._pack(*args, *outs, *extra)
+        rec = {
+            "checks": t(lambda: mod._check(*args)),
+            "copies": t(lambda: [x.contiguous() for x in tensors]),
+            "allocations": t(lambda: [args[0].new_empty(o.shape)
+                                      for o in outs]),
+            "packed_arguments": t(lambda: mod._pack(*args, *outs, *extra)),
+            "device_check": t(lambda: idx == torch.cuda.current_device()),
+            "stream_lookup": t(lambda: torch._C._cuda_getCurrentRawStream(
+                idx)),
+            "foreign_call": t(lambda: fn(
+                packed, torch._C._cuda_getCurrentRawStream(idx))),
+            "native_check": t(lambda: native.check(0, "launch"))}
+        rec["sum"] = sum(rec.values())
+        return rec
+
+    args = _wkv_inputs(dev, 1, 1, LM_WKV_HEADS, LM_WKV_DH, 11, True)
+    split = rk.wkv_split(LM_WKV_HEADS, platform.sm_count(idx))
+    wkv = pieces(rk, args, rk.rwkv6_wkv_cuda(*args), (split,),
+                 lib.rwkv6_wkv)
+    wkv.update(call=t(lambda: rk.rwkv6_wkv_cuda(*args)),
+               apply=t(lambda: rk.rwkv6_wkv(*args)),
+               ops=t(lambda: ops.rwkv_wkv(*args)))
+
+    args = _scan_inputs(dev, 1, 12, True)
+    scan = pieces(msc, args, msc.mamba_scan_cuda(*args), (), lib.mamba_scan)
+    scan.update(call=t(lambda: msc.mamba_scan_cuda(*args)),
+                apply=t(lambda: msc.mamba_scan(*args)),
+                ops=t(lambda: ops.mamba_selective_scan(*args)))
+    return {"rwkv6_wkv": wkv, "mamba_scan": scan, "reps": reps}
 
 
 def flash_timing(dev, S: int, dtype, reps: int) -> dict:
@@ -1798,9 +1937,13 @@ def phase_lm(dev) -> dict:
 
     chk = phase_lm_kernels(dev)
     timing = {"wkv_prefill": wkv_timing(dev, 512, False, 50),
+              "wkv_prefill_b4": wkv_timing(dev, 512, False, 20, B=4),
               "wkv_decode": wkv_timing(dev, 1, True, 200),
+              "wkv_layouts": wkv_layouts(dev),
               "scan_prefill": scan_timing(dev, 512, False, 50),
+              "scan_prefill_b4": scan_timing(dev, 512, False, 20, B=4),
               "scan_decode": scan_timing(dev, 1, True, 200),
+              "decode_host_us": decode_host_pieces(dev),
               "flash": {f"{dt}_{S}": flash_timing(dev, S, getattr(torch, dt),
                                                   20 if S > 512 else 100)
                         for dt in ("bfloat16", "float32")
@@ -1820,6 +1963,14 @@ def phase_lm(dev) -> dict:
                  f"path")
     return {"check": chk, "timing": timing, "models": models,
             "launches": launches}
+
+
+def _decode_row(timing: dict) -> dict:
+    """The decode call's numbers beside a recurrence kernel's prefill ones
+    in the kernels line (T = 1 from a state, back to back)."""
+    return {"decode_ms": timing["ms"], "decode_plain_ms": timing["plain_ms"],
+            "decode_bound_ms": timing["bound_ms"],
+            "decode_bound_by": timing["bound_by"]}
 
 
 def main() -> int:
@@ -1972,7 +2123,8 @@ def main() -> int:
          "max_abs_err": lm["check"]["wkv_err"],
          **{k: lm["timing"]["wkv_prefill"][k]
             for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                      "library_ms")}},
+                      "library_ms", "layout")},
+         **_decode_row(lm["timing"]["wkv_decode"])},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:29",
@@ -1989,7 +2141,8 @@ def main() -> int:
          "max_abs_err": lm["check"]["scan_err"],
          **{k: lm["timing"]["scan_prefill"][k]
             for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                      "library_ms")}},
+                      "library_ms", "bound_terms_ms")},
+         **_decode_row(lm["timing"]["scan_decode"])},
     ]
     summary = {"single_task": {k: v for k, v in single.items()
                                if k != "stats"},
@@ -2045,6 +2198,8 @@ def main() -> int:
                "idle_share": {k: v["idle_share"]
                               for k, v in m["profile"].items()}}
         for arch, m in lm["models"].items()}}), flush=True)
+    print(json.dumps({"decode_host_us": lm["timing"]["decode_host_us"]}),
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

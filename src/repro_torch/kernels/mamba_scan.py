@@ -4,8 +4,9 @@ Every Mamba layer runs it: a prefill over the prompt from a zero state,
 and every decoded token as one step from the cached state.  The CUDA kernel
 in ``csrc/mamba_scan.cu`` keeps each channel's ``(n,)`` state in the
 registers of four lanes for the whole sequence and reads B_t/C_t as the
-column slices of the x projection that the layer hands it; its header gives
-the design and the bound.
+column slices of the x projection that the layer hands it; its header
+gives the design and the bound.  The host side of a launch is kept short,
+as WKV's is (``kernels/rwkv6_wkv.py``).
 
 :func:`mamba_scan` is differentiable (:class:`MambaScan`).  Its forward
 routes on the device of its inputs: CUDA tensors launch the kernel
@@ -22,7 +23,7 @@ slices are saved as the views they are (no copy).
 
 from __future__ import annotations
 
-import ctypes
+import struct
 
 import torch
 
@@ -30,21 +31,24 @@ from . import native, ref
 from .platform import (
     LAUNCHES,
     PLAIN_BACKWARD_ON_CUDA,
+    launch,
     plain_backward,
     use_kernel,
 )
 
-MAX_STATE = 64  # four lanes of at most 16 states each
+MAX_STATE = 64  # 16 states a lane, four lanes a channel
+_F32 = torch.float32
 
 
 def _check(dt, Bt, Ct, xs, A, h0) -> tuple[int, int, int, int]:
-    """``(B, T, d, n)`` of a valid launch; raises on what the kernel does
-    not take."""
+    """``(B, T, d, n)`` of a valid launch; raises ``ValueError`` naming
+    the first input the kernel does not take.  Each check is a comparison
+    or two, since it runs on every decoded token of every layer."""
     if xs.ndim != 3:
         raise ValueError(f"xs: expected (B, T, d), got {tuple(xs.shape)}")
-    B, T, d = xs.shape
-    if dt.shape != xs.shape:
-        raise ValueError(f"dt: expected {tuple(xs.shape)}, got "
+    B, T, d = shape = xs.shape
+    if dt.shape != shape:
+        raise ValueError(f"dt: expected {tuple(shape)}, got "
                          f"{tuple(dt.shape)}")
     if A.ndim != 2 or A.shape[0] != d:
         raise ValueError(f"A: expected ({d}, n), got {tuple(A.shape)}")
@@ -56,14 +60,12 @@ def _check(dt, Bt, Ct, xs, A, h0) -> tuple[int, int, int, int]:
     if h0 is not None and h0.shape != (B, d, n):
         raise ValueError(f"h0: expected {(B, d, n)}, got "
                          f"{tuple(h0.shape)}")
+    dev = xs.get_device()
     for name, t in (("dt", dt), ("Bt", Bt), ("Ct", Ct), ("xs", xs),
                     ("A", A), ("h0", h0)):
-        if t is None:
-            continue
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name}: expected float32, got {t.dtype}")
-        if t.device != xs.device:
-            raise ValueError(f"{name} on {t.device}, xs on {xs.device}")
+        if t is not None and (t.dtype is not _F32 or t.get_device() != dev):
+            raise ValueError(f"{name}: expected float32 on {xs.device}, got "
+                             f"{t.dtype} on {t.device}")
     if not 1 <= n <= MAX_STATE:
         raise ValueError(f"mamba_scan: state size {n} not in 1..{MAX_STATE}")
     return B, T, d, n
@@ -74,34 +76,43 @@ def _unit_last(t: torch.Tensor) -> torch.Tensor:
     return t if t.stride(-1) == 1 else t.contiguous()
 
 
+# csrc/mamba_scan.cu's ScanCall: 20 int64, one foreign argument for the
+# whole launch (a ctypes conversion of each argument cost ~0.2 us)
+_CALL = struct.Struct("<20q")
+
+
+def _pack(dt, Bt, Ct, xs, A, h0, y, h_out) -> bytes:
+    """The kernel's arguments as ``csrc/mamba_scan.cu``'s ``ScanCall``:
+    pointers, the (b, t) strides of dt/x/B_t/C_t and the dims."""
+    B, T, d = xs.shape
+    return _CALL.pack(
+        dt.data_ptr(), xs.data_ptr(), Bt.data_ptr(), Ct.data_ptr(),
+        A.data_ptr(), 0 if h0 is None else h0.data_ptr(), y.data_ptr(),
+        h_out.data_ptr(), *dt.stride()[:2], *xs.stride()[:2],
+        *Bt.stride()[:2], *Ct.stride()[:2], B, T, d, A.shape[1])
+
+
 def mamba_scan_cuda(dt, Bt, Ct, xs, A, h0=None):
     """One launch of the kernel on a Hopper card: ``(y (B, T, d), h_final
     (B, d, n))``, float32.  dt/xs/Bt/Ct are read through their strides (a
     copy only when the last dimension is not contiguous).  Raises on a bad
     input or a refused launch."""
     B, T, d, n = _check(dt, Bt, Ct, xs, A, h0)
-    dt, Bt, Ct, xs = (_unit_last(t) for t in (dt, Bt, Ct, xs))
+    dt, Bt, Ct, xs = (_unit_last(dt), _unit_last(Bt), _unit_last(Ct),
+                      _unit_last(xs))
     A = A.contiguous()
     if h0 is not None:
         h0 = h0.contiguous()
-    y = torch.empty((B, T, d), dtype=torch.float32, device=xs.device)
-    h_out = torch.empty((B, d, n), dtype=torch.float32, device=xs.device)
+    y = xs.new_empty((B, T, d))
+    h_out = xs.new_empty((B, d, n))
     if B * d == 0:
         return y, h_out
     if T == 0:
         if h0 is None:
             return y, h_out.zero_()
         return y, h_out.copy_(h0)
-    strides = (ctypes.c_longlong * 8)(
-        *[s for t in (dt, xs, Bt, Ct) for s in t.stride()[:2]])
-    lib = native.library()
-    with torch.cuda.device(xs.device):
-        stream = torch.cuda.current_stream(xs.device).cuda_stream
-        err = lib.mamba_scan(
-            dt.data_ptr(), xs.data_ptr(), Bt.data_ptr(), Ct.data_ptr(),
-            ctypes.addressof(strides), A.data_ptr(),
-            h0.data_ptr() if h0 is not None else None, B, T, d, n,
-            y.data_ptr(), h_out.data_ptr(), stream)
+    err = launch(native.library().mamba_scan, xs.get_device(),
+                 _pack(dt, Bt, Ct, xs, A, h0, y, h_out))
     native.check(err, "mamba_scan launch")
     LAUNCHES["mamba_scan"] += 1
     return y, h_out
@@ -118,14 +129,14 @@ class MambaScan(torch.autograd.Function):
     the plain loop, recomputed (no backward kernel)."""
 
     @staticmethod
-    def forward(dt, Bt, Ct, xs, A, h0):
+    def forward(ctx, dt, Bt, Ct, xs, A, h0):
+        # the inputs as given, views included (no copy); saved in forward,
+        # not in a separate setup_context, which would have apply bind the
+        # arguments to forward's signature on every call (the decode path)
+        ctx.save_for_backward(dt, Bt, Ct, xs, A, h0)
         if use_kernel(xs):
             return mamba_scan_cuda(dt, Bt, Ct, xs, A, h0)
         return ref.mamba_scan(dt, Bt, Ct, xs, A, h0)
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        ctx.save_for_backward(*inputs)  # views as given: no copy
 
     @staticmethod
     def backward(ctx, gy, gh):

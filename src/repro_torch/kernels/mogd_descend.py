@@ -51,7 +51,7 @@ import math
 import torch
 
 from . import native
-from .platform import LAUNCHES, ROUTES, use_kernel
+from .platform import LAUNCHES, ROUTES, sm_count, use_kernel
 
 BLOCK_M = 32  # rows per CUDA block (4 warps); halves for small M
 MAX_OBJECTIVES = 8
@@ -413,16 +413,11 @@ def descend_route(plan: DescendPlan, G: int, M: int,
     """``("resident", rows per cluster)`` where the plan's weights fit a
     cluster's shared memory, else ``("streaming", rows per block)``;
     ``n_sm`` is the SM count of the card that will run it
-    (:func:`sm_count`)."""
+    (``platform.sm_count``)."""
     rows = resident_rows(plan, G, M, n_sm)
     if rows is not None:
         return "resident", rows
     return "streaming", _block_rows(plan, M)
-
-
-def sm_count(device) -> int:
-    """The number of SMs of the card ``device`` names."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 class _RLayer(ctypes.Structure):
@@ -494,7 +489,7 @@ def _descend_cuda(plan: DescendPlan, cfg, folded, x, lo, hi, ulo, uhi, us,
     G, M, D = x.shape
     if G == 0 or M == 0:
         return x.clone()
-    route, block_m = descend_route(plan, G, M, sm_count(x.device))
+    route, block_m = descend_route(plan, G, M, sm_count(x.get_device()))
     pad = (-M) % block_m
     ops = {"x": x, "lo": lo, "hi": hi, "ulo": ulo, "uhi": uhi, "us": us,
            "tsel": tsel}

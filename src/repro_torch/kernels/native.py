@@ -118,6 +118,8 @@ def ptxas_report() -> str:
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _LIB
+    if _LIB is not None:
+        return _LIB
     with _LOCK:
         if _LIB is None:
             lib = ctypes.CDLL(str(build()))
@@ -145,17 +147,13 @@ def library() -> ctypes.CDLL:
                 _VP, _I, _I, _VP, _VP, _VP,  # x, B, layers, dims, ws, bs
                 _I, _I, _I, _I, _VP, _VP]  # tile, stride, chunk, smem, out
             lib.mlp_forward.restype = _I
-            lib.rwkv6_wkv.argtypes = [
-                _VP, _VP, _VP, _VP, _VP, _VP, _VP,  # r k v w strides u S0
-                _I, _I, _I, _I, _VP, _VP, _VP]  # B T H dh, y, S_out, stream
+            lib.rwkv6_wkv.argtypes = [ctypes.c_char_p, _VP]  # rwkv6_wkv._pack
             lib.rwkv6_wkv.restype = _I
             lib.flash_attention_fwd.argtypes = [
                 _VP, _VP, _VP, _VP,  # q k v o
                 _I, _I, _I, _I, _I, _I, _F, _I, _VP]  # B S H Hk dh bf16 ...
             lib.flash_attention_fwd.restype = _I
-            lib.mamba_scan.argtypes = [
-                _VP, _VP, _VP, _VP, _VP, _VP, _VP,  # dt x B C strides A h0
-                _I, _I, _I, _I, _VP, _VP, _VP]  # B T d n, y, h_out, stream
+            lib.mamba_scan.argtypes = [ctypes.c_char_p, _VP]  # mamba_scan._pack
             lib.mamba_scan.restype = _I
             lib.mogd_plan_bytes.argtypes = []
             lib.mogd_plan_bytes.restype = _I

@@ -45,19 +45,23 @@ def flash_attention(q, k, v, causal: bool = True) -> torch.Tensor:
     return _flash_attention(q, k, v, causal=causal)
 
 
+def _as_f32(t):
+    """``t`` in float32 (itself when it is already: no dispatch on the
+    decode path)."""
+    return t if t.dtype is torch.float32 else t.to(torch.float32)
+
+
 def rwkv_wkv(r, k, v, w, u, S0=None):
     """r/k/v/w: (B, T, H, dh); u: (H, dh); S0: (B, H, dh, dh) or None.
     Returns (y (B, T, H, dh), S_final) in float32: the kernel reads the
     time mix's layout through its strides, from the given state."""
-    f32 = lambda t: t.to(torch.float32)  # noqa: E731
-    return rwkv6_wkv(f32(r), f32(k), f32(v), f32(w), f32(u),
-                     None if S0 is None else f32(S0))
+    return rwkv6_wkv(_as_f32(r), _as_f32(k), _as_f32(v), _as_f32(w),
+                     _as_f32(u), None if S0 is None else _as_f32(S0))
 
 
 def mamba_selective_scan(dt, Bt, Ct, xs, A, h0=None):
     """dt/xs: (B, T, d); Bt/Ct: (B, T, n); A: (d, n); h0: (B, d, n) or
     None.  Returns (y (B, T, d), h_final (B, d, n)) in float32: any T, from
     the given state (decode is T = 1 from the cached one)."""
-    f32 = lambda t: t.to(torch.float32)  # noqa: E731
-    return mamba_scan(f32(dt), f32(Bt), f32(Ct), f32(xs), f32(A),
-                      None if h0 is None else f32(h0))
+    return mamba_scan(_as_f32(dt), _as_f32(Bt), _as_f32(Ct), _as_f32(xs),
+                      _as_f32(A), None if h0 is None else _as_f32(h0))

@@ -46,6 +46,10 @@ PLAIN_ON_CUDA: collections.Counter = collections.Counter()
 PLAIN_BACKWARD_ON_CUDA: collections.Counter = collections.Counter()
 # "<kernel>:<route>" -> launches by that route
 ROUTES: collections.Counter = collections.Counter()
+# CUDA device indices found to be Hopper cards
+_ON_HOPPER: set[int] = set()
+# CUDA device index -> its number of SMs
+_SMS: dict[int, int] = {}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -69,17 +73,41 @@ def use_kernel(t: torch.Tensor) -> bool:
 
     CPU tensors take the plain version (False).  CUDA tensors take the
     kernel; a card that is not Hopper (compute capability 9.0) raises."""
-    if t.device.type == "cpu":
-        return False
-    if t.device.type != "cuda":
+    if not t.is_cuda:
+        if t.device.type == "cpu":
+            return False
         raise RuntimeError(f"unsupported device {t.device} for a port kernel")
-    cap = torch.cuda.get_device_capability(t.device)
-    if tuple(cap) != HOPPER:
-        raise RuntimeError(
-            f"the port's kernels are built for sm_90a (Hopper); "
-            f"{torch.cuda.get_device_name(t.device)} has compute "
-            f"capability {cap[0]}.{cap[1]}")
+    index = t.get_device()
+    if index not in _ON_HOPPER:  # a card's capability is read once
+        cap = torch.cuda.get_device_capability(index)
+        if tuple(cap) != HOPPER:
+            raise RuntimeError(
+                f"the port's kernels are built for sm_90a (Hopper); "
+                f"{torch.cuda.get_device_name(index)} has compute "
+                f"capability {cap[0]}.{cap[1]}")
+        _ON_HOPPER.add(index)
     return True
+
+
+def sm_count(index: int) -> int:
+    """The number of SMs of CUDA device ``index`` (read once)."""
+    n = _SMS.get(index)
+    if n is None:
+        n = _SMS[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return n
+
+
+def launch(fn, index: int, *args) -> int:
+    """``fn(*args, stream)``: a C entry point of ``native.library()``
+    called with the raw handle of the current stream of CUDA device
+    ``index`` (the handle Triton's launcher reads too), entering that
+    device only when it is not the current one, since the entry launches
+    on the current device."""
+    if index == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
 
 
 def reset_launches() -> None:

@@ -629,11 +629,11 @@ class TestDescendRoutesOnCard:
     def _strict(self, plan, params, batch, route, S):
         import dataclasses
 
-        from repro_torch.kernels.mogd_descend import descend_route, sm_count
+        from repro_torch.kernels.mogd_descend import descend_route
 
         G, R = batch[0].shape[:2]
-        assert descend_route(plan, G, R * S,
-                             sm_count(batch[0].device))[0] == route
+        n_sm = platform.sm_count(batch[0].get_device())
+        assert descend_route(plan, G, R * S, n_sm)[0] == route
         cfg = MOGDConfig(multistart=S)
         cases = [dataclasses.replace(cfg, steps=n) for n in (1, 10)]
         cases += [dataclasses.replace(cfg, steps=1, adam_eps=1e6,
@@ -668,11 +668,12 @@ class TestDescendRoutesOnCard:
 
     def test_resident_splits_rows_of_a_small_batch(self, cuda_device):
         """One group, 40 rows: clusters of 16 rows, the last one padded."""
-        from repro_torch.kernels.mogd_descend import descend_route, sm_count
+        from repro_torch.kernels.mogd_descend import descend_route
 
         plan, params, batch = _paper_case(1, 5, 8, (13, 64, 64, 1), 1,
                                           cuda_device)
-        assert descend_route(plan, 1, 40, sm_count(cuda_device)) == (
+        assert descend_route(plan, 1, 40,
+                             platform.sm_count(cuda_device.index)) == (
             "resident", 16)
         self._strict(plan, params, batch, "resident", 8)
 
@@ -680,3 +681,137 @@ class TestDescendRoutesOnCard:
         plan, params, batch = _paper_case(2, 2, 4, (13, 512, 512, 1), 2,
                                           cuda_device)
         self._strict(plan, params, batch, "streaming", 4)
+
+
+# ---------------------------------------------------------------------------
+# The redesigned recurrences: WKV's two layouts (8-column slabs of each
+# head's state, or one slab a head) and the scan's compiled state counts,
+# at the reference's 3e-4 (TestRwkvWKV, TestMambaScan), y and the final
+# state
+# ---------------------------------------------------------------------------
+
+H100_HEADS = 40  # RWKV-6 3B's heads: B = 1 is under an H100's 132 SMs
+
+
+def _allclose(got, want, tol=3e-4):
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+class TestWKVLayoutsOnCard:
+    @pytest.mark.parametrize("B", [1, 4])
+    @pytest.mark.parametrize("T", [1, 31, 32, 33, 37, 512, 1500])
+    @pytest.mark.parametrize("dh", [16, 32, 64, 128])
+    def test_equals_plain(self, cuda_device, dh, T, B):
+        """Every head size, lengths around a staged run and past many; B*H
+        = 40 takes the split layout, 160 one slab a head (an H100's 132
+        SMs; the split follows the card's own count)."""
+        from repro_torch.kernels.rwkv6_wkv import rwkv6_wkv_cuda, wkv_split
+
+        n_sm = platform.sm_count(cuda_device.index)
+        if H100_HEADS < n_sm <= 4 * H100_HEADS:
+            assert wkv_split(B * H100_HEADS, n_sm) == (B == 1)
+        args = _wkv_case(B, T, H100_HEADS, dh, T + dh + B, cuda_device,
+                         state=T % 2 == 1)
+        got = rwkv6_wkv_cuda(*args)
+        torch.cuda.synchronize()
+        _allclose(got, ref.rwkv6_wkv(*args))
+
+    @pytest.mark.parametrize("split", [True, False])
+    def test_decode_step_from_a_state(self, cuda_device, monkeypatch,
+                                      split):
+        """One step from a nonzero cached state, on each layout, through
+        the Function the model calls: the plain version's y and state, and
+        the cached state left as it was (the cache is functional)."""
+        from repro_torch.kernels import rwkv6_wkv as rk
+
+        monkeypatch.setattr(rk, "wkv_split", lambda BH, n_sm: split)
+        args = _wkv_case(1, 1, H100_HEADS, 64, 3, cuda_device, state=True)
+        cached = args[5].clone()
+        platform.reset_launches()
+        got = rk.rwkv6_wkv(*args)
+        torch.cuda.synchronize()
+        assert platform.launch_counts() == {"rwkv6_wkv": 1}
+        assert not platform.plain_on_cuda_counts()
+        _allclose(got, ref.rwkv6_wkv(*args))
+        assert torch.equal(args[5], cached)
+
+    @pytest.mark.parametrize("split", [True, False])
+    def test_reads_unaligned_strided_inputs(self, cuda_device, monkeypatch,
+                                            split):
+        """r/k/v/w as column slices of one projection at an offset that is
+        not 16-byte aligned (the 4-byte copies), on each layout."""
+        from repro_torch.kernels import rwkv6_wkv as rk
+
+        monkeypatch.setattr(rk, "wkv_split", lambda BH, n_sm: split)
+        rng = np.random.default_rng(4)
+        B, T, H, dh = 2, 45, 3, 32
+        big = torch.tensor(rng.normal(size=(B, T, 4 * H * dh + 1)),
+                           dtype=torch.float32, device=cuda_device)
+        r, k, v, w = (big[..., 1 + i * H * dh:1 + (i + 1) * H * dh]
+                      .unflatten(-1, (H, dh)) for i in range(4))
+        w = torch.sigmoid(w)
+        u = torch.tensor(rng.normal(size=(H, dh)) * 0.5,
+                         dtype=torch.float32, device=cuda_device)
+        assert r.data_ptr() % 16 and not r.is_contiguous()
+        got = rk.rwkv6_wkv_cuda(r, k, v, w, u)
+        _allclose(got, ref.rwkv6_wkv(r.contiguous(), k.contiguous(),
+                                     v.contiguous(), w.contiguous(), u))
+
+
+@pytest.mark.cuda
+class TestScanStatesOnCard:
+    @pytest.mark.parametrize("n", [1, 5, 16, 64])
+    @pytest.mark.parametrize("B,T,d", [(1, 37, 100), (2, 512, 1000),
+                                       (1, 1, 8192), (4, 512, 8192)])
+    def test_equals_plain(self, cuda_device, B, T, d, n):
+        """Every compiled states-a-lane count, d not a multiple of a CTA's
+        32 channels, a decode step from a state at Jamba's width, and
+        Jamba's width at B = 4."""
+        from repro_torch.kernels import mamba_scan as msc
+
+        args = _scan_case(B, T, d, n, T + d + n, cuda_device,
+                          state=T != 512)
+        got = msc.mamba_scan_cuda(*args)
+        torch.cuda.synchronize()
+        _allclose(got, ref.mamba_scan(*args))
+
+    def test_reads_unaligned_strided_inputs(self, cuda_device):
+        """B_t/C_t as column slices of the x projection at an odd offset and
+        dt/x with an odd t stride (the 4-byte copies)."""
+        from repro_torch.kernels import mamba_scan as msc
+
+        rng = np.random.default_rng(2)
+        B, T, d, n = 2, 70, 96, 16
+        dev = cuda_device
+        proj = torch.tensor(rng.normal(size=(B, T, 5 + 2 * n)),
+                            dtype=torch.float32, device=dev)
+        Bt, Ct = proj[..., 5:5 + n], proj[..., 5 + n:]
+        wide = torch.tensor(rng.normal(size=(B, T, 2 * d + 1)),
+                            dtype=torch.float32, device=dev)
+        dt = torch.nn.functional.softplus(wide[..., :d])
+        xs = wide[..., d + 1:]
+        A = -torch.exp(torch.tensor(rng.normal(size=(d, n)) * 0.3,
+                                    dtype=torch.float32, device=dev))
+        h0 = torch.tensor(rng.normal(size=(B, d, n)) * 0.5,
+                          dtype=torch.float32, device=dev)
+        assert Bt.data_ptr() % 16 and xs.stride(1) % 4
+        got = msc.mamba_scan_cuda(dt, Bt, Ct, xs, A, h0)
+        _allclose(got, ref.mamba_scan(dt.contiguous(), Bt.contiguous(),
+                                      Ct.contiguous(), xs.contiguous(), A,
+                                      h0))
+
+    def test_decode_step_leaves_the_cached_state(self, cuda_device):
+        from repro_torch.kernels.mamba_scan import mamba_scan
+
+        args = _scan_case(1, 1, 8192, 16, 9, cuda_device, state=True)
+        cached = args[5].clone()
+        platform.reset_launches()
+        got = mamba_scan(*args)
+        torch.cuda.synchronize()
+        assert platform.launch_counts() == {"mamba_scan": 1}
+        assert not platform.plain_on_cuda_counts()
+        _allclose(got, ref.mamba_scan(*args))
+        assert torch.equal(args[5], cached)
