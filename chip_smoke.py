@@ -69,7 +69,12 @@ Phases (any failure exits non-zero; nothing is caught and turned into 0):
 
 Phase 2 also holds ``pairwise_compose`` to its plain version bit for bit,
 and ``mlp_forward`` (the fused surrogate forward), its gradients and a
-``vmap(grad)`` through ``MLPRegressor`` to theirs.
+``vmap(grad)`` through ``MLPRegressor`` to theirs; the forward also at its
+layout's edges (one row to a grid capped at the SMs, a head alone, two
+outputs, widths that are not multiples of 4, layers streamed through the
+ring), one launch each.  The dominance, compose and MLP kernels' rows of
+the kernels line carry their profiler device times beside the
+back-to-back ones (``device_ms``, ``plain_device_ms``).
 
 Standard output ends with the service, model-server and LM-serving summary
 lines, the decode calls' host pieces, the kernels' JSON record (seven
@@ -111,6 +116,10 @@ PAPER_DIMS = (13, *PAPER_HIDDEN, 1)
 # the fused MLP forward: tests/test_kernels.py::TestMogdMLP (2e-5, 3e-5 at
 # the paper shape) and tests/test_mogd_descend.py::TestFusedMLPVJP (1e-4)
 MLP_TOL, MLP_PAPER_TOL, MLP_GRAD_TOL = 2e-5, 3e-5, 1e-4
+MLP_EDGE_ROWS = (1, 7, 8, 33, 409, 4096, 20000)
+MLP_EDGE_DIMS = ((13, 1), (13, 128, 128, 2), (13, 24, 10, 1),
+                 (13, 40, 72, 16, 128, 1))
+MLP_STREAMED = (13, 1000, 1000, 1)  # 4 MB of weights: the ring streams them
 # the model-server phase
 MS_WORKLOADS = 8  # MLP workloads of batch_suite(), plus one GP workload
 MS_TRACES = 2048  # per workload: half of the registry's max_traces
@@ -284,6 +293,24 @@ def pareto_timing(dev, N: int, M: int, k: int, reps: int = 200) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def pareto_device_ms(dev, N: int, M: int, k: int) -> dict:
+    """Profiler device times of cross_dominator_counts and its plain
+    version on ``pareto_timing``'s inputs at (N, M, k)."""
+    import torch
+
+    from repro_torch.kernels.pareto_filter import (
+        cross_dominator_counts,
+        cross_dominator_counts_plain,
+    )
+
+    FA = torch.as_tensor(_pareto_inputs(N, k, 5)).to(dev)
+    FB = torch.as_tensor(_pareto_inputs(M, k, 6)).to(dev)
+    return {"device_ms": device_ms(lambda: cross_dominator_counts(FA, FB),
+                                   name="cross_dominator_counts_kernel"),
+            "plain_device_ms": device_ms(
+                lambda: cross_dominator_counts_plain(FA, FB))}
+
+
 def _same_bits(got, want) -> bool:
     """Equal shapes, NaN in the same places, every other float equal bit
     for bit."""
@@ -381,6 +408,22 @@ def compose_timing(dev, N: int, M: int, k: int, reps: int = 200) -> dict:
             "gb_s": nbytes / (ms * 1e-3) / 1e9}
 
 
+def compose_device_ms(dev, N: int, M: int, k: int) -> dict:
+    """Profiler device times of pairwise_compose and its plain version on
+    ``compose_timing``'s inputs at (N, M, k)."""
+    from repro_torch.kernels.compose import (
+        pairwise_compose_blocked,
+        pairwise_compose_plain,
+    )
+
+    FA, FB, mask = _compose_inputs(N, M, k, 17, dev, nan=False)
+    return {"device_ms": device_ms(
+                lambda: pairwise_compose_blocked(FA, FB, mask),
+                name="pairwise_compose_kernel"),
+            "plain_device_ms": device_ms(
+                lambda: pairwise_compose_plain(FA, FB, mask))}
+
+
 def _mlp_inputs(dims, B: int, seed: int, dev, w_scale=0.1, b_scale=0.05,
                 uniform: bool = False):
     """Random weights and inputs of an MLP with layer widths ``dims``."""
@@ -438,6 +481,20 @@ def phase_mlp(dev) -> dict:
         fwd = max(fwd, _close(mlp_forward_cuda(x, ws, bs),
                               ref.mlp_forward(x, ws, bs), MLP_PAPER_TOL,
                               f"mlp_forward paper shape B={B}"))
+        cases += 1
+    # the layout's edges: one tile and its ragged neighbours, a grid capped
+    # at the SMs (20,000 rows: 19 tiles a block), a head alone, two outputs,
+    # widths that are not multiples of 4, unequal hidden widths, and layers
+    # too wide for shared memory (streamed through the ring)
+    edges = [(B, dims) for B in MLP_EDGE_ROWS for dims in MLP_EDGE_DIMS]
+    for B, dims in edges + [(64, MLP_STREAMED)]:
+        x, ws, bs = _mlp_inputs(dims, B, B + len(dims), dev)
+        before = platform.launch_counts().get("mlp_forward", 0)
+        got = mlp_forward_cuda(x, ws, bs)
+        if platform.launch_counts().get("mlp_forward", 0) != before + 1:
+            fail(f"mlp_forward {dims} B={B}: not one launch")
+        fwd = max(fwd, _close(got, ref.mlp_forward(x, ws, bs), MLP_TOL,
+                              f"mlp_forward {dims} B={B}"))
         cases += 1
     grads = 0.0
     for B in (5, 256, 300, 4096):  # TestFusedMLPVJP's network and inputs
@@ -2053,6 +2110,15 @@ def main() -> int:
     log(f"mlp_forward timing gate split: {m_gate}")
     log(f"mlp_forward timing 4096 rows: {m_big}")
     mark("modelserver")
+    # the device times of the two launch-sized kernels at their timed path
+    # shapes, taken here and not in phases 2 and 5: the profiler's first
+    # session (above, in mlp_timing) may leave CUPTI set up for the
+    # process and slow later launches on the host (phases 3-6 read slower
+    # when these ran in phases 2 and 5), so phases 2-6 run without it
+    p_main.update(pareto_device_ms(dev, *p_main["shape"]))
+    c_main.update(compose_device_ms(dev, *c_main["shape"]))
+    log(f"device times: pareto {p_main}; compose {c_main}")
+    mark("device_times")
     # phase 7: LM serving (counted per model inside)
     lm = phase_lm(dev)
     mark("lm_serving")
@@ -2093,7 +2159,9 @@ def main() -> int:
          "launches": launches["cross_dominator_counts"],
          "max_abs_err": p_err, "ms": p_main["ms"],
          "plain_ms": p_main["plain_ms"], "bound_ms": p_main["bound_ms"],
-         "bound_by": p_main["bound_by"], "library_ms": None},
+         "bound_by": p_main["bound_by"], "library_ms": None,
+         "device_ms": p_main["device_ms"],
+         "plain_device_ms": p_main["plain_device_ms"]},
         {"name": "descend_batch", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/mogd_descend.cu",
          "replaces": "src/repro/kernels/mogd_descend.py:239",
@@ -2108,14 +2176,18 @@ def main() -> int:
          "launches": service_launches["pairwise_compose"],
          "max_abs_err": c_err, "ms": c_main["ms"],
          "plain_ms": c_main["plain_ms"], "bound_ms": c_main["bound_ms"],
-         "bound_by": c_main["bound_by"], "library_ms": None},
+         "bound_by": c_main["bound_by"], "library_ms": None,
+         "device_ms": c_main["device_ms"],
+         "plain_device_ms": c_main["plain_device_ms"]},
         {"name": "mlp_forward", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/mogd_mlp.cu",
          "replaces": "src/repro/kernels/mogd_mlp.py:33",
          "launches": ms_launches["mlp_forward"],
          "max_abs_err": m_chk["max_abs_err"], "ms": m_gate["ms"],
          "plain_ms": m_gate["plain_ms"], "bound_ms": m_gate["bound_ms"],
-         "bound_by": m_gate["bound_by"], "library_ms": None},
+         "bound_by": m_gate["bound_by"], "library_ms": None,
+         "device_ms": m_gate["device_ms"],
+         "plain_device_ms": m_gate["plain_device_ms"]},
         {"name": "rwkv6_wkv", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rwkv6_wkv.cu",
          "replaces": "src/repro/kernels/rwkv6_wkv.py:27",

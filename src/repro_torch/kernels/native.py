@@ -143,9 +143,7 @@ def library() -> ctypes.CDLL:
             lib.pairwise_compose.argtypes = [
                 _VP, _VP, _I, _I, _I, ctypes.c_uint, _VP, _VP]
             lib.pairwise_compose.restype = _I
-            lib.mlp_forward.argtypes = [
-                _VP, _I, _I, _VP, _VP, _VP,  # x, B, layers, dims, ws, bs
-                _I, _I, _I, _I, _VP, _VP]  # tile, stride, chunk, smem, out
+            lib.mlp_forward.argtypes = [ctypes.c_char_p, _VP]  # mogd_mlp._pack
             lib.mlp_forward.restype = _I
             lib.rwkv6_wkv.argtypes = [ctypes.c_char_p, _VP]  # rwkv6_wkv._pack
             lib.rwkv6_wkv.restype = _I

@@ -216,6 +216,31 @@ class TestMLPForwardOnCard:
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                    rtol=1e-4, atol=1e-4)
 
+    @pytest.mark.parametrize("B", [1, 7, 8, 33, 409, 4096, 20000])
+    @pytest.mark.parametrize("dims", [(13, 1), (13, 128, 128, 2),
+                                      (13, 24, 10, 1),
+                                      (13, 40, 72, 16, 128, 1)])
+    def test_layout_edges(self, cuda_device, B, dims):
+        """A head alone, two outputs, widths that are not multiples of 4 and
+        unequal hidden widths, from one row to a grid capped at the SMs."""
+        self._one_launch(cuda_device, dims, B)
+
+    def test_streamed_layers(self, cuda_device):
+        """Weights too wide for shared memory stream through the ring."""
+        self._one_launch(cuda_device, (13, 1000, 1000, 1), 64)
+
+    @staticmethod
+    def _one_launch(dev, dims, B):
+        x, ws, bs = _mlp_case(dims, B, B + len(dims), dev)
+        before = platform.launch_counts().get("mlp_forward", 0)
+        got = mlp_forward_cuda(x, ws, bs)
+        torch.cuda.synchronize()
+        assert platform.launch_counts()["mlp_forward"] == before + 1
+        assert got.shape == (B, dims[-1])
+        np.testing.assert_allclose(got.cpu().numpy(),
+                                   ref.mlp_forward(x, ws, bs).cpu().numpy(),
+                                   rtol=2e-5, atol=2e-5)
+
     def test_bad_inputs_raise(self, cuda_device):
         x, ws, bs = _mlp_case([4, 8, 1], 3, 0, cuda_device)
         with pytest.raises(ValueError, match="float32"):

@@ -28,6 +28,8 @@ The classes ``TestMLP``, ``TestGP`` and ``TestEndToEndSurrogateMOO`` mirror
 
 from __future__ import annotations
 
+import struct
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -47,11 +49,8 @@ from repro.models import init_mlp as j_init_mlp
 from repro_torch.core import MOGDConfig, solve_pf
 from repro_torch.data.workloads import batch_problem, batch_suite, generate_traces
 from repro_torch.kernels import ops, platform, ref
-from repro_torch.kernels.mogd_mlp import (
-    MLPForwardFused,
-    launch_config,
-    mlp_forward_fused,
-)
+from repro_torch.kernels import mogd_mlp as mm
+from repro_torch.kernels.mogd_mlp import MLPForwardFused, mlp_forward_fused
 from repro_torch.models import (
     MLPSpec,
     TrainConfig,
@@ -222,17 +221,137 @@ class TestFusedForward:
         assert platform.launch_counts().get("mlp_forward", 0) == 0
         assert platform.plain_on_cuda_counts() == {}
 
-    def test_launch_config_fits_shared_memory(self):
-        for B, dims in ((1, (3, 16, 1)), (300, (24, 128, 128, 1)),
-                        (4096, PAPER_DIMS), (20000, PAPER_DIMS),
-                        (64, (13, 1000, 1000, 1))):
-            T, stride, wc, smem = launch_config(B, dims)
-            assert T % 8 == 0 and stride % 4 == 0
-            assert stride >= max(dims[:-1]) and wc >= max(dims[:-1])
-            assert smem == (2 * T * stride + wc) * 4 <= 232448
-        assert launch_config(4096, PAPER_DIMS)[0] == 32
+
+
+class TestKernelPlan:
+    """The fused forward's host side on CPU tensors: the plan
+    (``mogd_mlp.layout``), the validator (``_check``) and the packed
+    arguments (``_pack``), the same code that runs before every launch on
+    the card."""
+
+    @pytest.mark.parametrize("B,dims", [
+        (1, (3, 16, 1)), (300, (24, 128, 128, 1)), (4096, PAPER_DIMS),
+        (20000, PAPER_DIMS), (64, (13, 1000, 1000, 1))])
+    def test_layout_fits_shared_memory(self, B, dims):
+        lay = mm.layout(B, dims, 132)
+        assert lay.stride % 4 == 0 and lay.stride >= max(dims[1:-1],
+                                                         default=4)
+        assert lay.smem <= 232448 and lay.nbar % 2 == 0
+        k4 = [-(-k // 4) * 4 for k in dims[:-1]]
+        n4 = [-(-n // 4) * 4 for n in dims[1:]]
+        if lay.slots == 0:  # every layer whole, once, beside the tiles
+            weights = sum(k * n for k, n in zip(k4, n4))
+            chunks = sum(-(-n // cw) for n, (cw, *_) in zip(n4, lay.plan))
+            assert lay.nbar == 4 + chunks + chunks % 2
+            assert [kc for _, kc, *_ in lay.plan] == k4
+        else:
+            weights = lay.slots * lay.slot
+            assert lay.nbar == 4 + 2 * lay.slots
+            for (cw, kc, *_), k in zip(lay.plan, k4):
+                assert cw * kc <= lay.slot and kc <= k
+        d4 = -(-dims[0] // 4) * 4
+        assert lay.bias == sum(n4)
+        assert lay.smem == (8 * lay.nbar + 32 * (len(dims) - 1)
+                            + 4 * (2 * mm.ROWS * (d4 + lay.stride)
+                                   + lay.part + lay.bias + weights))
+        for cw, kc, lp, lw in lay.plan:
+            assert cw % 4 == 0 and kc % 4 == 0 and 0 <= lw <= lp <= 5
+            # a warp: 2^lw split lanes x (32 >> lw) quads; 8 warps in all
+            warps = -(-(cw // 4) // (32 >> lw)) << (lp - lw)
+            assert warps <= mm.THREADS // 32
+        assert 1 <= lay.grid <= -(-B // mm.ROWS)
+
+    def test_paper_shape_is_resident(self):
+        """13 -> 128 x 4 -> 1: all 50,944 weights (51,712 padded) stay in
+        shared memory, each layer one chunk; hidden layers split each
+        column quad's 128 inputs over 8 lanes, 4 in a warp and 2 warps
+        (k-groups) added through 1,024 floats of partials; the head's over
+        the 32 lanes of one warp."""
+        lay = mm.layout(409, PAPER_DIMS, 132)
+        assert lay.slots == 0 and lay.nbar == 4 + 5 + 1 and lay.part == 1024
+        assert lay.plan == ((128, 16, 2, 2), (128, 128, 3, 2),
+                            (128, 128, 3, 2), (128, 128, 3, 2),
+                            (4, 128, 5, 5))
+        assert lay.smem == (8 * 10 + 32 * 5
+                            + 4 * (2 * 8 * (16 + 128) + 1024 + 516 + 51712))
+
+    @pytest.mark.parametrize("B,grid132,grid114", [
+        (1, 1, 1), (409, 52, 52), (1000, 125, 114), (4096, 132, 114),
+        (20000, 132, 114)])
+    def test_grid_follows_the_sm_count(self, B, grid132, grid114):
+        """One block a tile while there are SMs for them, then one block
+        an SM, each walking its tiles."""
+        assert mm.layout(B, PAPER_DIMS, 132).grid == grid132
+        assert mm.layout(B, PAPER_DIMS, 114).grid == grid114
+
+    def test_too_wide_for_shared_memory_raises(self):
+        """A 10,000-wide hidden layer: its 8-row activation tiles alone
+        exceed a block's shared memory."""
         with pytest.raises(ValueError, match="shared memory"):
-            launch_config(8, (13, 10000, 1))
+            mm.layout(8, (13, 10000, 1), 132)
+
+    @staticmethod
+    def _net(dims=(5, 8, 3)):
+        ws = [torch.zeros(a, b) for a, b in zip(dims[:-1], dims[1:])]
+        bs = [torch.zeros(b) for b in dims[1:]]
+        return torch.zeros(4, dims[0]), ws, bs
+
+    @pytest.mark.parametrize("case,match", [
+        ("x_dtype", "x: expected float32"),
+        ("w_dtype", "w1: expected float32"),
+        ("b_device", "b0: expected float32 on cpu, got torch.float32 on meta"),
+        ("chain", "w1: expected \\(8, d\\)"),
+        ("bias_shape", "b1: expected \\(3,\\)"),
+        ("x_rank", "x: expected \\(B, D_in\\)"),
+        ("depth0", "1..32 layers"),
+        ("depth33", "1..32 layers"),
+        ("biases", "2 weights and 1 biases"),
+    ])
+    def test_check_names_the_input(self, case, match):
+        x, ws, bs = self._net()
+        if case == "x_dtype":
+            x = x.double()
+        elif case == "w_dtype":
+            ws[1] = ws[1].half()
+        elif case == "b_device":
+            bs[0] = torch.zeros(8, device="meta")
+        elif case == "chain":
+            ws[1] = torch.zeros(7, 3)
+        elif case == "bias_shape":
+            bs[1] = torch.zeros(4)
+        elif case == "x_rank":
+            x = x[0]
+        elif case == "depth0":
+            ws, bs = [], []
+        elif case == "depth33":
+            ws = [torch.zeros(5, 5)] * 33
+            bs = [torch.zeros(5)] * 33
+        elif case == "biases":
+            bs = bs[:1]
+        with pytest.raises(ValueError, match=match):
+            mm._check(x, ws, bs)
+
+    def test_check_returns_the_widths(self):
+        assert mm._check(*self._net((13, 24, 10, 1))) == (13, 24, 10, 1)
+
+    def test_pack_is_the_kernel_struct(self):
+        """``mlp_forward``'s int64 arguments: B, layers, grid, slots, slot,
+        stride, barriers, partials, biases, smem; the widths; each layer's
+        (column block, k chunk, log2 split, log2 split in a warp); then the
+        pointers of x, out, the weights and the biases."""
+        x, ws, bs = self._net((13, 24, 10, 1))
+        out = torch.empty(4, 1)
+        dims = mm._check(x, ws, bs)
+        lay = mm.layout(4, dims, 132)
+        got = struct.unpack(f"<{13 + 7 * 3}q",
+                            mm._pack(x, ws, bs, out, dims, lay))
+        assert got[:10] == (4, 3, lay.grid, lay.slots, lay.slot, lay.stride,
+                            lay.nbar, lay.part, lay.bias, lay.smem)
+        assert got[10:14] == (13, 24, 10, 1)
+        assert got[14:26] == tuple(v for step in lay.plan for v in step)
+        assert got[26:28] == (x.data_ptr(), out.data_ptr())
+        assert got[28:31] == tuple(w.data_ptr() for w in ws)
+        assert got[31:] == tuple(b.data_ptr() for b in bs)
 
 
 # ---------------------------------------------------------------------------
