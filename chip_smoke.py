@@ -72,9 +72,22 @@ and ``mlp_forward`` (the fused surrogate forward), its gradients and a
 ``vmap(grad)`` through ``MLPRegressor`` to theirs; the forward also at its
 layout's edges (one row to a grid capped at the SMs, a head alone, two
 outputs, widths that are not multiples of 4, layers streamed through the
-ring), one launch each.  The dominance, compose and MLP kernels' rows of
-the kernels line carry their profiler device times beside the
-back-to-back ones (``device_ms``, ``plain_device_ms``).
+ring), one launch each.  The dominance kernel is held exact at its
+layout's edges too (both bodies, 8-row tiles around their edges, one warp
+to eight over FB; +inf, NaN and duplicate rows) and timed at the frontier
+store's three call shapes and at 4096 x 4096, beside a whole
+``FrontierStore.add`` (capacity 256, batches of 4) on its kernel path and
+on the dense torch pass; compose at its float4 walk's edges (k = 1..5,
+sizes not multiples of 4, the mask as bools on the card), bit for bit.
+The dominance, compose and MLP kernels' rows of the kernels line carry
+their profiler device times beside the back-to-back ones (``device_ms``,
+``plain_device_ms``); compose's ``library_ms`` is one broadcast
+``torch.add`` of the same inputs.
+
+``python3 chip_smoke.py --timing NAME`` runs only phase 1 and the
+dominance, compose and store-``add`` timings that the whole run makes,
+into ``NAME.json`` beside ``chip_smoke.json``; copied into an earlier
+tree, it times that tree's kernels the same way.
 
 Standard output ends with the service, model-server and LM-serving summary
 lines, the decode calls' host pieces, the kernels' JSON record (seven
@@ -217,8 +230,9 @@ def phase_card():
 # ---------------------------------------------------------------------------
 
 
-def _pareto_inputs(n: int, k: int, seed: int):
-    """Random fronts with +inf rows and duplicate rows mixed in."""
+def _pareto_inputs(n: int, k: int, seed: int, nan: bool = False):
+    """Random fronts with +inf rows and duplicate rows mixed in (and, with
+    ``nan``, a NaN in every 16th row)."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -228,6 +242,8 @@ def _pareto_inputs(n: int, k: int, seed: int):
         dup = rng.choice(n, size=max(1, n // 8), replace=False)
         F[dup] = F[rng.integers(0, n, size=len(dup))]
         F[1] = F[0]
+    if nan and n >= 8:
+        F[5::16, rng.integers(0, k)] = np.nan
     return F
 
 
@@ -267,8 +283,29 @@ def phase_pareto(dev) -> float:
                 cases += 1
         F = torch.as_tensor(_pareto_inputs(4096, k, 99)).to(dev)
         worst = max(worst, compare(F, F, f"self N=4096 k={k}"))
+    # the layout's edges: 8 or 32 candidate rows a CTA around their tiles,
+    # one warp to eight over FB, +inf, NaN and duplicate rows, and rows
+    # equal across the two sets
+    for k in (2, 3, 5):
+        for n in PARETO_EDGE_N:
+            for m in PARETO_EDGE_M:
+                FA = _pareto_inputs(n, k, 3 * n + m + k, nan=True)
+                FB = _pareto_inputs(m, k, 5 * m + n + k, nan=True)
+                FB[: min(n, m) // 2] = FA[: min(n, m) // 2]
+                worst = max(worst, compare(
+                    torch.as_tensor(FA).to(dev), torch.as_tensor(FB).to(dev),
+                    f"edge N={n} M={m} k={k}"))
+                cases += 1
     log(f"pareto: {cases} cross-set cases and 2 self cases exact")
     return float(worst)
+
+
+# the dominance kernel's layout edges (pareto_filter.layout)
+PARETO_EDGE_N = (1, 4, 31, 32, 33, 128, 4096)
+PARETO_EDGE_M = (1, 4, 32, 33, 64, 256, 257, 4096)
+# the frontier store's three calls at capacity 256 with a batch of 4 (batch
+# vs live, batch vs batch, live vs kept batch), and a large call
+PARETO_SHAPES = ((4, 256), (4, 4), (256, 4), (4096, 4096))
 
 
 def pareto_timing(dev, N: int, M: int, k: int, reps: int = 200) -> dict:
@@ -305,8 +342,7 @@ def pareto_device_ms(dev, N: int, M: int, k: int) -> dict:
 
     FA = torch.as_tensor(_pareto_inputs(N, k, 5)).to(dev)
     FB = torch.as_tensor(_pareto_inputs(M, k, 6)).to(dev)
-    return {"device_ms": device_ms(lambda: cross_dominator_counts(FA, FB),
-                                   name="cross_dominator_counts_kernel"),
+    return {**kernel_device_ms(lambda: cross_dominator_counts(FA, FB)),
             "plain_device_ms": device_ms(
                 lambda: cross_dominator_counts_plain(FA, FB))}
 
@@ -378,8 +414,28 @@ def phase_compose(dev) -> float:
                         worst = max(worst, float(
                             (got[both] - want[both]).abs().max()))
                     cases += 1
+    # the float4 walk's edges: k = 1..5, M*k and N*M*k not multiples of 4;
+    # the mask also as bools on the card, read there by the kernel (the
+    # 4096 x 4096 x 2 case above writes 134 MB, past L2: streaming stores)
+    for k in range(1, 6):
+        for n, m in COMPOSE_EDGE_SHAPES:
+            FA, FB, mask = _compose_inputs(n, m, k, 7 * n + m + k, dev, True)
+            for add in (mask, ~mask, torch.as_tensor(mask, device=dev)):
+                got = pairwise_compose_blocked(FA, FB, add)
+                want = pairwise_compose_plain(FA, FB, add)
+                torch.cuda.synchronize()
+                if not _same_bits(got, want):
+                    fail(f"pairwise_compose differs from its plain version "
+                         f"at the edge N={n} M={m} k={k}")
+                cases += 1
     log(f"compose: {cases} cases bit for bit, max |d| {worst:g}")
     return worst
+
+
+# the compose kernel's float4 walk: M*k and N*M*k not multiples of 4 at
+# odd k, a tail shorter than one float4, rows longer than a CTA
+COMPOSE_EDGE_SHAPES = ((1, 1), (3, 5), (7, 3), (27, 25), (5, 1001),
+                       (130, 77))
 
 
 def compose_timing(dev, N: int, M: int, k: int, reps: int = 200) -> dict:
@@ -416,12 +472,77 @@ def compose_device_ms(dev, N: int, M: int, k: int) -> dict:
         pairwise_compose_plain,
     )
 
+    import torch
+
     FA, FB, mask = _compose_inputs(N, M, k, 17, dev, nan=False)
-    return {"device_ms": device_ms(
-                lambda: pairwise_compose_blocked(FA, FB, mask),
-                name="pairwise_compose_kernel"),
+    return {**kernel_device_ms(
+                lambda: pairwise_compose_blocked(FA, FB, mask)),
             "plain_device_ms": device_ms(
-                lambda: pairwise_compose_plain(FA, FB, mask))}
+                lambda: pairwise_compose_plain(FA, FB, mask)),
+            "broadcast_add_device_ms": device_ms(
+                lambda: torch.add(FA[:, None, :], FB[None, :, :]))}
+
+
+def store_add_timing(dev, adds: int = 400) -> dict:
+    """Milliseconds per ``FrontierStore.add`` at capacity 256 with batches
+    of 4, on the host's clock from before the first add to a synchronise
+    after the last: the kernel path (three dominance launches, 4 x 256,
+    4 x 4 and 256 x 4) beside the dense torch pass on the card
+    (``_incremental_pass``, ``use_kernel=False``) as a yardstick.  The
+    store holds 128 live points on the front x + y = 1 and every batch lies
+    above it (x, y >= 0.55), so each add makes the whole pass and leaves
+    the store as it was."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.frontier_store import FrontierStore
+
+    rng = np.random.default_rng(7)
+    t = np.linspace(0.0, 1.0, 128)
+    front = np.stack([t, 1.0 - t], axis=1)
+    batches = [rng.uniform(0.55, 1.5, (4, 2)) for _ in range(adds)]
+    X = np.zeros((4, 3))
+    out = {}
+    for label, use_kernel in (("kernel", True), ("dense", False)):
+        store = FrontierStore(2, 3, capacity=256, use_kernel=use_kernel,
+                              device=dev)
+        store.add(front, np.zeros((128, 3)))
+        for F in batches[:20]:
+            store.add(F, X)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for F in batches:
+            store.add(F, X)
+        torch.cuda.synchronize()
+        out[f"{label}_ms"] = (time.perf_counter() - t0) / adds * 1e3
+        if store.capacity != 256 or store.n_points != 128:
+            fail(f"store timing: capacity {store.capacity}, "
+                 f"{store.n_points} live points")
+    return out
+
+
+def kernel_device_ms(fn, reps: int = 50) -> dict:
+    """The profiler's device time of the one kernel that each call of
+    ``fn`` launches, over ``reps`` back-to-back calls in one window: the
+    mean (``device_ms``, as ``device_ms()`` gives it) and the median launch
+    (``device_median_ms``, which one slow launch does not move); None
+    where the profiler does not record one kernel a call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    each = sorted(ev.time_range.end - ev.time_range.start
+                  for ev in prof.events() if ev.device_type == DeviceType.CUDA)
+    if len(each) != reps:
+        return {"device_ms": None, "device_median_ms": None}
+    return {"device_ms": sum(each) / reps / 1e3,
+            "device_median_ms": each[reps // 2] / 1e3}
 
 
 def _mlp_inputs(dims, B: int, seed: int, dev, w_scale=0.1, b_scale=0.05,
@@ -972,7 +1093,8 @@ def single_task_descend(dev) -> dict:
                 "seconds": wall, "routes": routes,
                 "descend_device_s": sum(s.elapsed_time(e)
                                         for s, e in events) / 1e3}
-            if set(routes) != {f"descend_batch:{label}"}:
+            if {r for r in routes if r.startswith("descend_batch:")} != {
+                    f"descend_batch:{label}"}:
                 fail(f"single task forced to {label}: routes {routes}")
     finally:
         for name, fn in saved.items():
@@ -2054,10 +2176,13 @@ def main() -> int:
 
     # phase 2: kernels against their plain versions
     p_err = phase_pareto(dev)
-    p_main = pareto_timing(dev, 4, 256, 2)
-    p_big = pareto_timing(dev, 4096, 4096, 2, reps=20)
-    log(f"pareto timing main-path shape: {p_main}")
-    log(f"pareto timing 4096x4096: {p_big}")
+    p_times = {f"{N}x{M}": pareto_timing(dev, N, M, 2,
+                                         reps=20 if N * M > 1 << 20 else 200)
+               for N, M in PARETO_SHAPES}
+    p_main = p_times["4x256"]
+    log(f"pareto timing: {p_times}")
+    store_add = store_add_timing(dev)
+    log(f"frontier-store add, ms: {store_add}")
     d = phase_descend(dev)
     log(f"descend timing: {d}")
     c_err = phase_compose(dev)
@@ -2069,6 +2194,7 @@ def main() -> int:
     single = phase_single_task(dev)
     launches = platform.launch_counts()
     routes = {"single_task": platform.route_counts()}
+    plain = {"single_task": platform.plain_on_cuda_counts()}
     log(f"main-path launches: {launches}")
     single["by_route"] = single_task_descend(dev)
     mark("single_task")
@@ -2077,6 +2203,7 @@ def main() -> int:
     tenants = phase_tenants(dev)
     tenant_launches = platform.launch_counts()
     routes["tenants"] = platform.route_counts()
+    plain["tenants"] = platform.plain_on_cuda_counts()
     log(f"tenant-path launches: {tenant_launches}")
     mark("tenants")
     # phase 5: the service with DAG jobs (counted separately)
@@ -2084,6 +2211,7 @@ def main() -> int:
     service = phase_service(dev)
     service_launches = platform.launch_counts()
     routes["service"] = platform.route_counts()
+    plain["service"] = platform.plain_on_cuda_counts()
     log(f"service-path launches: {service_launches}; routes: {routes}")
     # the compose kernel's time at a shape of its path: the ETL job's
     # extract x transform_a stage frontiers
@@ -2115,9 +2243,11 @@ def main() -> int:
     # session (above, in mlp_timing) may leave CUPTI set up for the
     # process and slow later launches on the host (phases 3-6 read slower
     # when these ran in phases 2 and 5), so phases 2-6 run without it
-    p_main.update(pareto_device_ms(dev, *p_main["shape"]))
-    c_main.update(compose_device_ms(dev, *c_main["shape"]))
-    log(f"device times: pareto {p_main}; compose {c_main}")
+    for timing in p_times.values():
+        timing.update(pareto_device_ms(dev, *timing["shape"]))
+    for timing in (c_main, c_big):
+        timing.update(compose_device_ms(dev, *timing["shape"]))
+    log(f"device times: pareto {p_times}; compose {c_main}, {c_big}")
     mark("device_times")
     # phase 7: LM serving (counted per model inside)
     lm = phase_lm(dev)
@@ -2139,13 +2269,30 @@ def main() -> int:
                  "pairwise_compose"):
         if service_launches.get(name, 0) <= 0:
             fail(f"kernel {name} was not launched on the service path")
+    for label, counts in plain.items():
+        for name in ("cross_dominator_counts", "pairwise_compose"):
+            if counts.get(name, 0):
+                fail(f"{label}: the plain {name} ran {counts[name]} times "
+                     f"on a CUDA tensor")
     for label, counts in (("single_task", launches),
                           ("tenants", tenant_launches),
                           ("service", service_launches)):
-        if routes[label] != {"descend_batch:resident":
-                             counts["descend_batch"]}:
+        by_kernel = {}
+        for route, n in routes[label].items():
+            by_kernel.setdefault(route.split(":")[0], {})[route] = n
+        if by_kernel.get("descend_batch") != {"descend_batch:resident":
+                                              counts["descend_batch"]}:
             fail(f"{label}: descend launches by route {routes[label]}, "
                  f"want all {counts['descend_batch']} resident")
+        # a store add's three launches: the batch against the live rows on
+        # the 8-row tiles (capacity >= 64), the batch against itself and
+        # the live rows against the kept batch on the short-FB body
+        dom = by_kernel.get("cross_dominator_counts", {})
+        if (set(dom) != {"cross_dominator_counts:short",
+                         "cross_dominator_counts:tiles"}
+                or sum(dom.values()) != counts["cross_dominator_counts"]):
+            fail(f"{label}: dominance launches by body {dom}, want both "
+                 f"bodies and {counts['cross_dominator_counts']} in all")
     bad = sorted(m for m in sys.modules
                  if m == "jax" or m.startswith(("jax.", "jaxlib"))
                  or m == "repro" or m.startswith("repro."))
@@ -2176,7 +2323,8 @@ def main() -> int:
          "launches": service_launches["pairwise_compose"],
          "max_abs_err": c_err, "ms": c_main["ms"],
          "plain_ms": c_main["plain_ms"], "bound_ms": c_main["bound_ms"],
-         "bound_by": c_main["bound_by"], "library_ms": None,
+         "bound_by": c_main["bound_by"],
+         "library_ms": c_main["broadcast_add_ms"],
          "device_ms": c_main["device_ms"],
          "plain_device_ms": c_main["plain_device_ms"]},
         {"name": "mlp_forward", "route": "cuda",
@@ -2230,7 +2378,8 @@ def main() -> int:
                             "service": service_launches,
                             "modelserver": ms_launches},
                "routes": routes,
-               "pareto_4096": p_big, "descend": d,
+               "pareto": p_times, "store_add_ms": store_add,
+               "descend": d,
                "compose_path": c_main, "compose_4096": c_big,
                "mlp_check": m_chk, "mlp_gate": m_gate, "mlp_4096": m_big,
                "lm": lm, "phase_s": phase_s}
@@ -2279,5 +2428,47 @@ def main() -> int:
     return 0
 
 
+def timing_main(name: str) -> int:
+    """``--timing NAME``: the card line, the build, then only the dominance
+    and compose kernels' timings (``PARETO_SHAPES``; the ETL job's 27 x 25 x
+    2 and 4096 x 4096 x 2 beside the broadcast add) and the frontier store's
+    add, as ``main`` makes them; written as ``NAME.json`` beside
+    ``chip_smoke.json``.  It needs only the
+    wrappers' public functions, so this script run from a copy of an
+    earlier tree times that tree's kernels the same way."""
+    sys.path.insert(0, str(SRC))
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    card = phase_card()
+    dev = torch.device("cuda", 0)
+    res = {"card": card}
+    res["pareto"] = {f"{N}x{M}": pareto_timing(
+        dev, N, M, 2, reps=20 if N * M > 1 << 20 else 200)
+        for N, M in PARETO_SHAPES}
+    res["compose"] = {"27x25": compose_timing(dev, 27, 25, 2),
+                      "4096x4096": compose_timing(dev, 4096, 4096, 2,
+                                                  reps=20)}
+    res["store_add_ms"] = store_add_timing(dev)
+    for timing in res["pareto"].values():
+        timing.update(pareto_device_ms(dev, *timing["shape"]))
+    for timing in res["compose"].values():
+        timing.update(compose_device_ms(dev, *timing["shape"]))
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / f"{name}.json").write_text(json.dumps(res, indent=1))
+    print(json.dumps({name: {
+        "pareto": {s: [t["ms"], t["device_ms"]]
+                   for s, t in res["pareto"].items()},
+        "compose": {s: [t["ms"], t["device_ms"], t["broadcast_add_ms"],
+                        t["broadcast_add_device_ms"]]
+                    for s, t in res["compose"].items()},
+        "store_add_ms": res["store_add_ms"]}}), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--timing"]:
+        sys.exit(timing_main(sys.argv[2] if len(sys.argv) > 2 else "timing"))
     sys.exit(main())

@@ -218,18 +218,30 @@ class FrontierStore:
 
     def _kernel_pass(self, Bp: np.ndarray, bvalid: np.ndarray):
         """Dominance pass via the cross-set dominator-count kernel: three
-        calls (batch vs live, batch vs batch, live vs kept batch)."""
+        calls (batch vs live, batch vs batch, live vs kept batch) between
+        one upload and one read-back.  The padded live rows, the padded
+        batch and the batch's validity travel as one float32 buffer;
+        ``keep`` and the kept batch are formed on the device, and ``keep``
+        and ``killed`` come back in one copy."""
         from ..kernels.pareto_filter import cross_dominator_counts
 
-        Ei = np.where(self._alive[:, None], self._F, np.inf)
-        Bi = np.where(bvalid[:, None], Bp, np.inf)
-        Ej, Bj = self._f32(Ei), self._f32(Bi)
-        dom_by_live = (cross_dominator_counts(Bj, Ej) > 0).cpu().numpy()
-        dom_in_batch = (cross_dominator_counts(Bj, Bj) > 0).cpu().numpy()
-        keep = bvalid & ~dom_by_live & ~dom_in_batch
-        Bk = self._f32(np.where(keep[:, None], Bp, np.inf))
-        killed = (cross_dominator_counts(Ej, Bk) > 0).cpu().numpy()
-        return keep, self._alive & ~killed
+        cap, bb, k = len(self._F), len(Bp), self.k
+        buf = np.empty((cap + bb) * k + bb, dtype=np.float32)
+        buf[: cap * k] = np.where(self._alive[:, None], self._F,
+                                  np.inf).ravel()
+        buf[cap * k: (cap + bb) * k] = np.where(bvalid[:, None], Bp,
+                                                np.inf).ravel()
+        buf[(cap + bb) * k:] = bvalid
+        dev = torch.as_tensor(buf, device=self.device)
+        Ej = dev[: cap * k].view(cap, k)
+        Bj = dev[cap * k: (cap + bb) * k].view(bb, k)
+        keep = ((dev[(cap + bb) * k:] != 0)
+                & (cross_dominator_counts(Bj, Ej) == 0)
+                & (cross_dominator_counts(Bj, Bj) == 0))
+        Bk = torch.where(keep[:, None], Bj, float("inf"))
+        killed = cross_dominator_counts(Ej, Bk) > 0
+        back = torch.cat([keep, killed]).cpu().numpy()
+        return back[:bb], self._alive & ~back[bb:]
 
     # ------------------------------------------------------------------
     def add(self, F_new, X_new) -> int:

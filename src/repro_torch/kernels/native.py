@@ -124,7 +124,7 @@ def library() -> ctypes.CDLL:
         if _LIB is None:
             lib = ctypes.CDLL(str(build()))
             lib.pareto_cross_dominator_counts.argtypes = [
-                _VP, _VP, _I, _I, _I, _VP, _VP]
+                ctypes.c_char_p, _VP]  # pareto_filter._pack
             lib.pareto_cross_dominator_counts.restype = _I
             lib.mogd_descend.argtypes = [
                 _VP, _VP, _VP, _VP, _VP, _VP, _VP,  # x0 + row constants
@@ -140,8 +140,7 @@ def library() -> ctypes.CDLL:
                 _I, _F, _F, _F, _F, _F, _F, _F, _F, _F,  # hyperparameters
                 _I, _VP, _VP]  # smem bytes, out, stream
             lib.mogd_descend_resident.restype = _I
-            lib.pairwise_compose.argtypes = [
-                _VP, _VP, _I, _I, _I, ctypes.c_uint, _VP, _VP]
+            lib.pairwise_compose.argtypes = [ctypes.c_char_p, _VP]  # compose._pack
             lib.pairwise_compose.restype = _I
             lib.mlp_forward.argtypes = [ctypes.c_char_p, _VP]  # mogd_mlp._pack
             lib.mlp_forward.restype = _I

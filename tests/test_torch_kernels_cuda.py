@@ -49,6 +49,19 @@ from repro_torch.kernels.pareto_filter import (
 )
 
 ATOL_DESCEND = 2e-5
+# the dominance kernel's layout edges (pareto_filter.layout): the short-FB
+# body up to 32 FB rows at k = 2 and 3, a lane a candidate; the long body's
+# 8-row tiles around their edges, one warp to eight over FB rows, and FB
+# longer than a CTA strides over several times
+PARETO_EDGES = [(n, m, k) for k in (2, 3, 5)
+                for n in (1, 4, 31, 32, 33, 128, 4096)
+                for m in (1, 4, 32, 33, 64, 256, 257, 4096)] + [
+                    (4, 20000, 3), (9, 2100, 2), (300, 7, 2)]
+# the compose kernel's float4 walk: k = 1..5, M*k and N*M*k not multiples
+# of 4, and one output past L2 (streaming stores)
+COMPOSE_EDGES = [(n, m, k, True) for k in (1, 2, 3, 4, 5)
+                 for n, m in ((1, 1), (3, 5), (7, 3), (27, 25), (5, 1001))]
+COMPOSE_EDGES += [(4096, 4096, 2, True)]
 
 
 @pytest.fixture
@@ -127,12 +140,33 @@ def _batch(rng, G, R, S, D, k, device):
 @pytest.mark.cuda
 class TestKernelsOnCard:
     @pytest.mark.parametrize("n,m,k", [(0, 3, 2), (1, 1, 2), (129, 127, 3),
-                                       (300, 700, 2), (50, 60, 5)])
+                                       (300, 700, 2), (50, 60, 5)]
+                             + PARETO_EDGES)
     def test_pareto_kernel_equals_plain(self, cuda_device, n, m, k):
-        FA = torch.as_tensor(_front(n, k, 1, n // 4, n // 3)).to(cuda_device)
-        FB = torch.as_tensor(_front(m, k, 2, m // 4, m // 3)).to(cuda_device)
-        assert torch.equal(cross_dominator_counts(FA, FB),
-                           cross_dominator_counts_plain(FA, FB))
+        FA = _front(n, k, 1, n // 4, n // 3)
+        FB = _front(m, k, 2, m // 4, m // 3)
+        if n >= 7 and m >= 7:  # NaN rows, and rows equal across the sets
+            FA[::7, 0] = np.nan
+            FB[3::7, k - 1] = np.nan
+            FB[: min(n, m) // 2] = FA[: min(n, m) // 2]
+        FA = torch.as_tensor(FA).to(cuda_device)
+        FB = torch.as_tensor(FB).to(cuda_device)
+        from repro_torch.kernels import pareto_filter
+
+        before = platform.launch_counts().get("cross_dominator_counts", 0)
+        routes = platform.route_counts()
+        got = cross_dominator_counts(FA, FB)
+        torch.cuda.synchronize()
+        launched = int(n > 0 and m > 0)
+        assert platform.launch_counts().get(
+            "cross_dominator_counts", 0) == before + launched
+        # the launch is counted under the body its layout picks
+        if launched:
+            key = (pareto_filter.ROUTE_SHORT
+                   if pareto_filter.layout(n, m, k).short_fb
+                   else pareto_filter.ROUTE_TILES)
+            assert platform.route_counts()[key] == routes.get(key, 0) + 1
+        assert torch.equal(got, cross_dominator_counts_plain(FA, FB))
 
     def test_descend_kernel_equals_plain(self, cuda_device):
         dims = (5, 16, 16, 1)
@@ -149,14 +183,48 @@ class TestKernelsOnCard:
     @pytest.mark.parametrize("n,m,k,nan", [
         (0, 3, 2, False), (3, 0, 2, False), (1, 1, 2, False),
         (7, 5, 2, True), (130, 200, 3, True), (50, 60, 5, True),
-        (4096, 1, 2, False), (1, 4096, 3, False), (33, 1000, 2, True)])
+        (4096, 1, 2, False), (1, 4096, 3, False), (33, 1000, 2, True)]
+        + COMPOSE_EDGES)
     def test_compose_kernel_equals_plain(self, cuda_device, n, m, k, nan):
         FA, FB, mask = _compose_case(n, m, k, 3, cuda_device, nan)
-        for add in (mask, ~mask):
+        # the mask from the host, and as bools on the card (read there)
+        for add in (mask, ~mask, mask.to(cuda_device)):
             got = pairwise_compose_blocked(FA, FB, add)
-            want = pairwise_compose_plain(FA, FB, add)
+            want = pairwise_compose_plain(FA, FB, add.cpu())
             assert got.shape == (n * m, k)
             assert _same_bits(got, want)
+
+    def test_store_on_card_equals_store_on_host(self, cuda_device):
+        """A kernel-path FrontierStore on the card and the same store on
+        the host (plain routes) after 50 seeded adds: the same live set
+        after every add, three kernel launches an add that reaches the
+        dominance pass, and the store grown past its first capacity."""
+        from repro_torch.core.frontier_store import FrontierStore
+
+        rng = np.random.default_rng(50)
+        card = FrontierStore(2, 3, capacity=64, use_kernel=True,
+                             device=cuda_device)
+        host = FrontierStore(2, 3, capacity=64, use_kernel=True, device="cpu")
+        for b in range(50):
+            n = int(rng.integers(1, 12))
+            W = rng.random((n, 2))
+            F = W / W.sum(axis=1, keepdims=True) * (1.0 - 0.05 * (b // 10))
+            F[rng.random(n) < 0.2] += 0.3  # dominated
+            F[rng.random(n) < 0.1] = np.inf
+            if n > 2:
+                F[1] = F[0]
+            X = rng.random((n, 3))
+            before = platform.launch_counts().get("cross_dominator_counts", 0)
+            assert card.add(F, X) == host.add(F, X)
+            launched = platform.launch_counts().get(
+                "cross_dominator_counts", 0) - before
+            assert launched in (0, 3)
+            np.testing.assert_array_equal(card.frontier()[0],
+                                          host.frontier()[0])
+            np.testing.assert_array_equal(card.frontier()[1],
+                                          host.frontier()[1])
+        assert card.capacity == host.capacity > 64
+        assert card.n_points == host.n_points
 
 
 def _mlp_case(dims, B, seed, dev, w_scale=0.1, b_scale=0.05):
