@@ -28,13 +28,31 @@ Phases (any failure exits non-zero; nothing is caught and turned into 0):
    ``recommend`` for every tenant, ``recommend_dag`` for both jobs through
    the pairwise-compose kernel, then ``solve_dag`` on the 8-stage job at
    expt5's full size.
+5b. The front desk: a ``FrontDesk`` with its dispatcher thread over a
+   kernel-path ``MOOService`` with a ``FrontierVault`` (in a temporary
+   directory), one ticket of 16 probes for each of the 258 tenants, the
+   interactive, standard and batch SLO classes dealt round-robin, while a
+   second thread calls ``recommend`` on served sessions (at least 200
+   times).  Every ticket must end done, or shed where its class allows it,
+   every batch ticket done, every latency breakdown sum to its end-to-end
+   time within 1e-6 s, the descend and dominance kernels launch from the
+   dispatcher thread with no plain version on the card, and the rounds'
+   persist phase snapshot sessions; then every session is closed (its
+   state persisted) and the vault flushed.
+5c. The vault: a fresh service on the same directory re-creates every
+   tenant's session: each one closed with a frontier is restored with no
+   executor dispatch, its state (row history, Pareto mask, rectangle
+   queue) equal bit for bit to the closed one's, and recommends the same
+   configuration.
 6. The model server at the paper's width: one ``ModelRegistry`` training
    4 x 128 MLP surrogates over the 12 Spark knobs for eight
    ``batch_suite()`` workloads (2,048 traces each) and a GP for a ninth,
    gated promotion to v1, one ``create_workload_session`` each on one
    ``MOOService``, then traces from another workload's surface streamed into
    one workload until drift fires, the inline retrain to v2 and the warm
-   re-solve of its session.
+   re-solve of its session.  The registry persists each promotion to a
+   vault; after the phase a fresh registry rehydrates the 9 workloads from
+   it, with the same task signatures and no fit.
 7. LM serving at full width, weights random from a seed: ``rwkv6_wkv``
    (RWKV-6 3B's 40 heads of 64: a 512-token prefill at B = 1 and B = 4,
    which take the kernel's two layouts, a decode step from a nonzero
@@ -81,7 +99,8 @@ on the dense torch pass; compose at its float4 walk's edges (k = 1..5,
 sizes not multiples of 4, the mask as bools on the card), bit for bit.
 The dominance, compose and MLP kernels' rows of the kernels line carry
 their profiler device times beside the back-to-back ones (``device_ms``,
-``plain_device_ms``); compose's ``library_ms`` is one broadcast
+``plain_device_ms``), and the descend kernel's row its own at the timed
+shape (``device_ms``); compose's ``library_ms`` is one broadcast
 ``torch.add`` of the same inputs.
 
 ``python3 chip_smoke.py --timing NAME`` runs only phase 1 and the
@@ -89,11 +108,12 @@ dominance, compose and store-``add`` timings that the whole run makes,
 into ``NAME.json`` beside ``chip_smoke.json``; copied into an earlier
 tree, it times that tree's kernels the same way.
 
-Standard output ends with the service, model-server and LM-serving summary
-lines, the decode calls' host pieces, the kernels' JSON record (seven
-kernels; WKV and the scan with their decode call's times beside the
-prefill's, the scan's bound counting its exps on the SFUs) and the device
-JSON line.  Without a CUDA device, or outside the repository, the
+Standard output ends with the service, front-desk (latency by class,
+shed counts, ``recommend`` while dispatching, launches, the plane), vault,
+model-server and LM-serving summary lines, the decode calls' host pieces,
+the kernels' JSON record (seven kernels; WKV and the scan with their
+decode call's times beside the prefill's, the scan's bound counting its
+exps on the SFUs) and the device JSON line.  Without a CUDA device, or outside the repository, the
 script exits non-zero and prints no result.
 """
 
@@ -133,6 +153,13 @@ MLP_EDGE_ROWS = (1, 7, 8, 33, 409, 4096, 20000)
 MLP_EDGE_DIMS = ((13, 1), (13, 128, 128, 2), (13, 24, 10, 1),
                  (13, 40, 72, 16, 128, 1))
 MLP_STREAMED = (13, 1000, 1000, 1)  # 4 MB of weights: the ring streams them
+# the front-desk phase: one ticket a batch_suite() tenant, the SLO classes
+# dealt round-robin, and the recommend calls a second thread makes while
+# the plane dispatches
+FD_CLASSES = ("interactive", "standard", "batch")
+FD_PROBES = 16
+FD_RECOMMENDS = 200
+FD_RECOMMEND_PAUSE_S = 1e-3
 # the model-server phase
 MS_WORKLOADS = 8  # MLP workloads of batch_suite(), plus one GP workload
 MS_TRACES = 2048  # per workload: half of the registry's max_traces
@@ -763,6 +790,21 @@ def descend_case(dev, G: int, R: int, S: int, D: int = 13,
     return plan, cfg, tuple(params), batch
 
 
+def descend_device_ms(dev, G=64, R=4, S=16, reps: int = 10) -> dict:
+    """The profiler's device time of the resident descend kernel at the
+    timed shape (phase 2's case, 120 steps), and of everything one
+    ``descend_batch`` call runs on the card."""
+    from repro_torch.kernels.mogd_descend import descend_batch
+
+    plan, cfg, params, batch = descend_case(dev, G, R, S)
+
+    def call():
+        descend_batch(plan, cfg, params, *batch)
+
+    return {"device_ms": device_ms(call, reps, name="descend_resident"),
+            "call_device_ms": device_ms(call, reps)}
+
+
 def descend_flops(plan, G: int, M: int, steps: int) -> float:
     """Forward + input-gradient FLOPs of one descend call."""
     per_row = sum(sum(a * b for a, b in zip(d[:-1], d[1:]))
@@ -1341,6 +1383,293 @@ def phase_service(dev, rounds: int = 4) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phases 5b-5c: the front desk and the vault
+# ---------------------------------------------------------------------------
+
+
+def _pcts(values) -> dict:
+    """The count, p50 and p95 of a list (None when it is empty)."""
+    import numpy as np
+
+    if not len(values):
+        return {"n": 0, "p50": None, "p95": None}
+    v = np.asarray(values, dtype=np.float64)
+    return {"n": int(len(v)), "p50": float(np.quantile(v, 0.5)),
+            "p95": float(np.quantile(v, 0.95))}
+
+
+def phase_frontdesk(dev, vault_dir) -> dict:
+    """A ``FrontDesk`` over ``MOOService(use_kernel=True, vault=...)`` with
+    its dispatcher thread: one ticket of ``FD_PROBES`` probes for each
+    ``batch_suite()`` tenant, the SLO classes dealt round-robin, while a
+    second thread calls ``recommend`` on sessions already served.  Every
+    ticket must end done (or shed, where its class allows it), every batch
+    ticket done, every breakdown must sum to its end-to-end latency, and
+    the rounds' persist phase must have snapshotted sessions to the vault.
+    The service's tracer records the plane's dispatch spans: ``recommend``
+    must answer at least ``FD_RECOMMENDS`` times inside them.
+    Then every session is closed (its state persisted) and the vault
+    flushed; the closed states come back for the vault phase."""
+    import threading
+
+    from repro_torch.core.progressive_frontier import export_pf_state
+    from repro_torch.data.workloads import batch_suite
+    from repro_torch.frontdesk import DONE, SHED, FrontDesk
+    from repro_torch.obs import Observability
+    from repro_torch.persist import FrontierVault
+    from repro_torch.service import MOOService
+
+    suite = batch_suite()
+    specs = [spark_task(1 + i, dev, w) for i, w in enumerate(suite)]
+    vault = FrontierVault(vault_dir)
+    # max_sessions raised from the default 256 for the 258 tenants
+    svc = MOOService(use_kernel=True, max_sessions=512, vault=vault,
+                     vault_autosave_probes=FD_PROBES,
+                     obs=Observability(trace=True), device=dev)
+    desk = FrontDesk(svc, capacity=2 * len(specs))
+    served: list = []  # session ids with a completed ticket
+    rec_s: list = []  # (start on the tracer's clock, seconds)
+    stop = threading.Event()
+    errors: list = []
+
+    def reader():
+        i = 0
+        while not stop.is_set():
+            if not served:
+                time.sleep(FD_RECOMMEND_PAUSE_S)
+                continue
+            sid = served[i % len(served)]
+            i += 1
+            t0 = time.perf_counter()
+            try:
+                rec = svc.recommend(sid)
+            except Exception as e:  # reported and failed below
+                errors.append(repr(e))
+                return
+            rec_s.append((t0, time.perf_counter() - t0))
+            if len(rec.config) != 12:
+                errors.append(f"recommend({sid}) set {len(rec.config)} "
+                              f"knobs")
+                return
+            time.sleep(FD_RECOMMEND_PAUSE_S)
+
+    t0 = time.perf_counter()
+    desk.start()
+    rthread = threading.Thread(target=reader, name="recommend-reader",
+                               daemon=True)
+    rthread.start()
+    tickets, admit_s = [], []
+    for i, spec in enumerate(specs):
+        t1 = time.perf_counter()
+        tickets.append(desk.submit(spec=spec, slo=FD_CLASSES[i % 3],
+                                   n_probes=FD_PROBES))
+        admit_s.append(time.perf_counter() - t1)
+    submit_s = time.perf_counter() - t0
+    pending = list(tickets)
+    while pending:  # publish served sessions as their tickets complete
+        for t in pending:
+            if t.ok and t.session_id not in served:
+                served.append(t.session_id)
+        pending = [t for t in pending if not t.done]
+        if time.perf_counter() - t0 > 600.0:
+            fail(f"front desk: {len(pending)} tickets still pending")
+        time.sleep(0.01)
+    if not desk.drain(timeout=60.0):
+        fail("front desk: live tickets left after every ticket ended")
+    wall_s = time.perf_counter() - t0
+    # the launch counters are read after the dispatcher stops: in this
+    # phase only its thread launches kernels, so they see one writer
+    desk.stop()
+    stop.set()
+    rthread.join(timeout=30.0)
+    if rthread.is_alive():
+        fail("front desk: the recommend thread did not stop")
+    if errors:
+        fail(f"front desk: recommend failed: {errors[:3]}")
+    states = {t.state for t in tickets}
+    if not states <= {DONE, SHED}:
+        fail(f"front desk: ticket states {sorted(states)}")
+    for t in tickets:
+        if t.state == SHED and not t.slo.sheddable:
+            fail(f"front desk: a {t.slo.name} ticket was shed")
+        b = t.breakdown()
+        if b["e2e_s"] is None or abs(b["accounted_s"] - b["e2e_s"]) > 1e-6:
+            fail(f"front desk: ticket {t.ticket_id} breakdown {b}")
+    if any(t.state != DONE for t in tickets if t.slo.name == "batch"):
+        fail("front desk: a batch ticket did not complete")
+    spans = svc.obs.tracer.spans()
+    windows = sorted((sp.t0, sp.t1) for sp in spans
+                     if sp.name == "frontdesk.dispatch")
+    rec_busy = [dt for t, dt in rec_s
+                if any(a <= t <= b for a, b in windows)]
+    if len(rec_busy) < FD_RECOMMENDS:
+        fail(f"front desk: {len(rec_busy)} recommend calls while the plane "
+             f"dispatched ({len(rec_s)} in all), want {FD_RECOMMENDS}")
+    persist_s = svc._h_round["persist_s"].sum
+    if persist_s <= 0.0 or svc.vault_snapshots <= 0:
+        fail(f"front desk: persist_s {persist_s}, vault snapshots "
+             f"{svc.vault_snapshots}")
+    by_class = {}
+    for name in FD_CLASSES:
+        mine = [t for t in tickets if t.slo.name == name]
+        done = [t for t in mine if t.state == DONE]
+        by_class[name] = {
+            "tickets": len(mine), "done": len(done),
+            "shed": sum(t.state == SHED for t in mine),
+            "admit_s": _pcts([a for a, t in zip(admit_s, tickets)
+                              if t.slo.name == name]),
+            "queue_wait_s": _pcts([t.queue_wait_s for t in done]),
+            "dispatch_s": _pcts([t.dispatch_s for t in done]),
+            "e2e_s": _pcts([t.latency() for t in done])}
+    # the sessions' states as the vault phase must find them again
+    closed = {}
+    for spec, t in zip(specs, tickets):
+        sess = svc._sessions.get(t.session_id)
+        st = None if sess is None else sess.state
+        if st is None or st.store.n_points == 0:
+            continue
+        arrays, meta = export_pf_state(st)
+        rec = svc.recommend(t.session_id)
+        closed[spec.signature()] = {"arrays": arrays, "meta": meta,
+                                    "config": rec.config,
+                                    "index": rec.index}
+    for t in tickets:
+        svc.close_session(t.session_id)
+    if not vault.flush(timeout=120.0):
+        fail("front desk: the vault did not flush")
+    vault.close()
+    plane = desk.stats()
+    out = {"tickets": len(tickets), "wall_s": wall_s, "submit_s": submit_s,
+           "by_class": by_class,
+           "recommend_s": {"while_dispatching": _pcts(rec_busy),
+                           "all": _pcts([dt for _, dt in rec_s])},
+           "dispatch_walls_s": [b - a for a, b in windows],
+           "dispatches": plane["dispatches"],
+           "dispatched_probes": plane["dispatched_probes"],
+           "fast_completions": plane["fast_completions"],
+           "persist_s": persist_s,
+           "round_s": {p: h.sum for p, h in svc._h_round.items()},
+           "vault_snapshots": svc.vault_snapshots,
+           "vault": vault.stats(), "closed_with_frontier": len(closed),
+           "executor": svc.executor.stats()}
+    log(f"front desk: {out}")
+    return {**out, "_specs": specs, "_closed": closed}
+
+
+def phase_vault(dev, vault_dir, specs, closed) -> dict:
+    """A fresh ``MOOService(use_kernel=True)`` on the front desk's vault
+    directory re-creates every tenant's session: each one that closed with
+    a frontier is restored with no executor dispatch, its exported state
+    (row history, Pareto mask, rectangle queue, box, traces) equal bit for
+    bit to the closed one's, and its recommendation the same
+    configuration."""
+    import numpy as np
+
+    from repro_torch.core.progressive_frontier import export_pf_state
+    from repro_torch.persist import FrontierVault
+    from repro_torch.service import MOOService
+
+    vault = FrontierVault(vault_dir)
+    t0 = time.perf_counter()
+    svc = MOOService(use_kernel=True, max_sessions=512, vault=vault,
+                     device=dev)
+    per_s, sids = [], {}
+    for spec in specs:
+        t1 = time.perf_counter()
+        sids[spec.signature()] = svc.create_session(spec)
+        per_s.append(time.perf_counter() - t1)
+    restore_s = time.perf_counter() - t0
+    if svc.vault_restores != len(closed):
+        fail(f"vault: {svc.vault_restores} restores, {len(closed)} "
+             f"sessions closed with a frontier")
+    if svc.executor.dispatches != 0:
+        fail(f"vault: {svc.executor.dispatches} executor dispatches on "
+             f"restore")
+    for sig, want in closed.items():
+        sess = svc._sessions[sids[sig]]
+        arrays, meta = export_pf_state(sess.state)
+        if sorted(arrays) != sorted(want["arrays"]):
+            fail(f"vault: restored arrays {sorted(arrays)}")
+        for k, a in want["arrays"].items():
+            got = np.asarray(arrays[k])
+            a = np.asarray(a)
+            if (got.dtype != a.dtype or got.shape != a.shape
+                    or got.tobytes() != a.tobytes()):
+                fail(f"vault: restored {k} differs from the closed "
+                     f"session's")
+        for k in ("probes", "initial_volume", "store"):
+            if meta[k] != want["meta"][k]:
+                fail(f"vault: restored meta {k} {meta[k]} != "
+                     f"{want['meta'][k]}")
+        rec = svc.recommend(sids[sig])
+        if rec.index != want["index"] or rec.config != want["config"]:
+            fail("vault: a restored session recommends another "
+                 "configuration")
+        if sess.state.store.device.type != "cuda":
+            fail(f"vault: a restored store on {sess.state.store.device}")
+    if svc.executor.dispatches != 0:
+        fail("vault: recommend dispatched")
+    vault.close()
+    out = {"sessions": len(specs), "restores": svc.vault_restores,
+           "restore_all_s": restore_s,
+           "restore_per_session_s": {**_pcts(per_s), "max": max(per_s)},
+           "executor_dispatches": svc.executor.dispatches}
+    log(f"vault: {out}")
+    return out
+
+
+def registry_rehydrate(dev, reg, vault_dir) -> dict:
+    """A fresh ``ModelRegistry`` on the model-server phase's vault
+    directory rehydrates every workload that phase promoted: the same
+    task-spec signatures (the snapshot identity the frontier vault keys
+    on), the same versions, models on the card, and no fit."""
+    from repro_torch.modelserver import ModelRegistry
+    from repro_torch.modelserver import registry as registry_mod
+    from repro_torch.persist import FrontierVault
+
+    if not reg.vault.flush(timeout=120.0):
+        fail("registry: the vault did not flush")
+    sigs = sorted(reg._records)
+    fits = [0]
+    real = registry_mod.train_candidate
+
+    def counted(*a, **kw):
+        fits[0] += 1
+        return real(*a, **kw)
+
+    registry_mod.train_candidate = counted
+    try:
+        fresh = ModelRegistry(trainer=reg.trainer, drift=reg.drift_config,
+                              vault=FrontierVault(vault_dir), device=dev)
+        t0 = time.perf_counter()
+        got = fresh.rehydrate()
+        _sync(dev)
+        seconds = time.perf_counter() - t0
+    finally:
+        registry_mod.train_candidate = real
+    if sorted(got) != sigs or fits[0] != 0:
+        fail(f"registry: rehydrated {len(got)} of {len(sigs)} workloads "
+             f"with {fits[0]} fits")
+    for sig in sigs:
+        if (fresh.task_spec(sig).signature()
+                != reg.task_spec(sig).signature()):
+            fail(f"registry: {reg.info(sig)['name']} rehydrated with "
+                 f"another task signature")
+        if fresh.info(sig)["version"] != reg.info(sig)["version"]:
+            fail("registry: a rehydrated version differs")
+        if any(m.device.type != "cuda"
+               for m in fresh.snapshot(sig).models):
+            fail("registry: a rehydrated model is off the card")
+    reg.vault.close()
+    fresh.vault.close()
+    out = {"workloads": len(got), "persisted": reg.workloads_persisted,
+           "rehydrate_s": seconds, "fits": fits[0],
+           "versions": sorted(fresh.info(s)["version"] for s in sigs)}
+    log(f"registry rehydrate: {out}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: the model server
 # ---------------------------------------------------------------------------
 
@@ -1352,7 +1681,7 @@ def _sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-def phase_modelserver(dev, n_workloads: int = MS_WORKLOADS,
+def phase_modelserver(dev, vault_dir, n_workloads: int = MS_WORKLOADS,
                       n_traces: int = MS_TRACES, hidden=PAPER_HIDDEN,
                       shift_rows: int = SHIFT_ROWS,
                       min_probes: int = MS_PROBES) -> dict:
@@ -1371,7 +1700,8 @@ def phase_modelserver(dev, n_workloads: int = MS_WORKLOADS,
     streamed into the first workload: the drift watermark fires, the
     registry trims to the new rows and retrains inline
     (``retrain_on_drift``) to v2, and one more pass warm re-solves its
-    session."""
+    session.  The registry persists every promotion to a vault in
+    ``vault_dir`` (``registry_rehydrate`` reads it back)."""
     import torch
 
     from repro_torch.core import Objective
@@ -1383,6 +1713,7 @@ def phase_modelserver(dev, n_workloads: int = MS_WORKLOADS,
     )
     from repro_torch.modelserver import ModelRegistry, TrainerConfig
     from repro_torch.modelserver.trainer import gate_split, relative_error
+    from repro_torch.persist import FrontierVault
     from repro_torch.service import MOOService
 
     suite = batch_suite()
@@ -1392,7 +1723,8 @@ def phase_modelserver(dev, n_workloads: int = MS_WORKLOADS,
     gp_cfg = TrainerConfig(backend="gp", gp_max_points=1024,
                            log_target=True)
     reg = ModelRegistry(trainer=mlp_cfg, retrain_on_drift=True,
-                        trim_on_drift=shift_rows, device=dev)
+                        trim_on_drift=shift_rows,
+                        vault=FrontierVault(vault_dir), device=dev)
     events = []
     reg.subscribe(lambda ev: events.append((time.perf_counter(), ev)))
     t0 = time.perf_counter()
@@ -1515,7 +1847,7 @@ def phase_modelserver(dev, n_workloads: int = MS_WORKLOADS,
             fail(f"model server: {type(obj).__name__} on {obj.device}")
     ex = svc.executor.stats()
     log(f"model server executor stats: {ex}")
-    return {"workloads": per, "ingest_s": ingest_s,
+    return {"workloads": per, "ingest_s": ingest_s, "_registry": reg,
             "sessions_solve_s": solve_s,
             "gp_round_s": gp_round_s,
             "gp_dispatch_s": gp_round["timing"]["solve_s"],
@@ -2221,9 +2553,36 @@ def main() -> int:
     log(f"compose timing path shape: {c_main}")
     log(f"compose timing 4096x4096: {c_big}")
     mark("service")
+    # phase 5b: the front desk over a kernel-path service with a vault
+    # (counted separately; read after its dispatcher thread stops)
+    import tempfile
+
+    vault_root = Path(tempfile.mkdtemp(prefix="chip_smoke_vault_"))
+    platform.reset_launches()
+    desk = phase_frontdesk(dev, vault_root / "frontiers")
+    fd_launches = platform.launch_counts()
+    fd_plain = platform.plain_on_cuda_counts()
+    log(f"front-desk launches: {fd_launches}; plain versions on the card: "
+        f"{fd_plain}")
+    for name in ("descend_batch", "cross_dominator_counts"):
+        if fd_launches.get(name, 0) <= 0:
+            fail(f"kernel {name} was not launched from the front desk's "
+                 f"dispatcher thread")
+    if fd_plain:
+        fail(f"front desk: plain versions ran on the card: {fd_plain}")
+    mark("frontdesk")
+    # phase 5c: the vault, read back by a fresh service (counted separately)
+    platform.reset_launches()
+    vault = phase_vault(dev, vault_root / "frontiers", desk.pop("_specs"),
+                        desk.pop("_closed"))
+    vault["launches"] = platform.launch_counts()
+    vault_plain = platform.plain_on_cuda_counts()
+    if vault_plain:
+        fail(f"vault: plain versions ran on the card: {vault_plain}")
+    mark("vault")
     # phase 6: the model server (counted separately)
     platform.reset_launches()
-    ms = phase_modelserver(dev)
+    ms = phase_modelserver(dev, vault_root / "models")
     ms_launches = platform.launch_counts()
     ms_plain = platform.plain_on_cuda_counts()
     log(f"model-server-path launches: {ms_launches}; plain versions on the "
@@ -2238,6 +2597,13 @@ def main() -> int:
     log(f"mlp_forward timing gate split: {m_gate}")
     log(f"mlp_forward timing 4096 rows: {m_big}")
     mark("modelserver")
+    # the registry's vault, read back by a fresh registry
+    vault["registry"] = registry_rehydrate(dev, ms.pop("_registry"),
+                                           vault_root / "models")
+    import shutil
+
+    shutil.rmtree(vault_root, ignore_errors=True)
+    mark("registry_rehydrate")
     # the device times of the two launch-sized kernels at their timed path
     # shapes, taken here and not in phases 2 and 5: the profiler's first
     # session (above, in mlp_timing) may leave CUPTI set up for the
@@ -2247,7 +2613,9 @@ def main() -> int:
         timing.update(pareto_device_ms(dev, *timing["shape"]))
     for timing in (c_main, c_big):
         timing.update(compose_device_ms(dev, *timing["shape"]))
-    log(f"device times: pareto {p_times}; compose {c_main}, {c_big}")
+    d.update(descend_device_ms(dev))
+    log(f"device times: pareto {p_times}; compose {c_main}, {c_big}; "
+        f"descend {d['device_ms']} (whole call {d['call_device_ms']})")
     mark("device_times")
     # phase 7: LM serving (counted per model inside)
     lm = phase_lm(dev)
@@ -2316,7 +2684,8 @@ def main() -> int:
          "max_abs_err": d["max_abs_err"], "ms": d["ms"],
          "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
          "bound_by": d["bound_by"], "library_ms": None,
-         "kernel_route": d["route"], "ms_before": d["ms_streaming"]},
+         "kernel_route": d["route"], "ms_before": d["ms_streaming"],
+         "device_ms": d["device_ms"]},
         {"name": "pairwise_compose", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/compose.cu",
          "replaces": "src/repro/kernels/compose.py:31",
@@ -2373,9 +2742,11 @@ def main() -> int:
                "modelserver": {k: v for k, v in ms.items()
                                if k not in ("stats", "executor")},
                "modelserver_stats": ms["stats"],
+               "frontdesk": desk, "vault": vault,
                "launches": {"single_task": launches,
                             "tenants": tenant_launches,
                             "service": service_launches,
+                            "frontdesk": fd_launches,
                             "modelserver": ms_launches},
                "routes": routes,
                "pareto": p_times, "store_add_ms": store_add,
@@ -2397,6 +2768,27 @@ def main() -> int:
                              for name, dag in service["dags"].items()},
         "solve_dag_s": service["solve_dag"]["seconds"],
         "solve_dag_dispatches": service["solve_dag"]["dispatches"]}}),
+        flush=True)
+    print(json.dumps({"frontdesk_latency_s": {
+        n: {k: c[k] for k in ("admit_s", "queue_wait_s", "dispatch_s",
+                              "e2e_s")}
+        for n, c in desk["by_class"].items()}}), flush=True)
+    print(json.dumps({"frontdesk_shed": {
+        n: {"done": c["done"], "shed": c["shed"]}
+        for n, c in desk["by_class"].items()}}), flush=True)
+    print(json.dumps({"frontdesk_recommend_s": desk["recommend_s"]}),
+          flush=True)
+    print(json.dumps({"frontdesk_launches": fd_launches}), flush=True)
+    print(json.dumps({"frontdesk": {
+        k: desk[k] for k in ("tickets", "wall_s", "dispatches",
+                             "dispatch_walls_s", "persist_s",
+                             "vault_snapshots")}}), flush=True)
+    print(json.dumps({"vault": {
+        k: vault[k] for k in ("sessions", "restores", "restore_all_s",
+                              "restore_per_session_s",
+                              "executor_dispatches", "launches")}
+        | {"registry": {k: vault["registry"][k]
+                        for k in ("workloads", "rehydrate_s", "fits")}}}),
         flush=True)
     print(json.dumps({"modelserver": {
         "fit_s": {n: w["fit_s"] for n, w in ms["workloads"].items()},

@@ -47,11 +47,14 @@ def _f32(F) -> torch.Tensor:
 
 
 def _mask_bits(add_mask, k: int) -> np.ndarray:
-    """The mask as ``(k,)`` numpy bools; raises on a wrong length."""
+    """The mask as ``(k,)`` numpy bools; raises on a wrong length.  A bool
+    mask is taken as it is; any other is cast to float32 and read as "add"
+    where it is above 0.5, as the reference's kernel reads it."""
     m = add_mask
     if isinstance(m, torch.Tensor):
         m = m.detach().cpu().numpy()
-    m = np.asarray(m, dtype=bool).reshape(-1)
+    m = np.asarray(m)
+    m = (m if m.dtype == bool else m.astype(np.float32) > 0.5).reshape(-1)
     if m.shape != (k,):
         raise ValueError(f"add_mask: expected {k} entries, got {m.shape[0]}")
     return m
@@ -59,7 +62,8 @@ def _mask_bits(add_mask, k: int) -> np.ndarray:
 
 def _device_mask(add_mask, k: int, F: torch.Tensor):
     """A mask held on ``F``'s card as ``(k,)`` contiguous bools (no trip to
-    the host), or None when it is anywhere else."""
+    the host), or None when it is anywhere else.  A mask of another dtype
+    is thresholded there at float32 0.5, as :func:`_mask_bits` does."""
     if not (isinstance(add_mask, torch.Tensor) and add_mask.is_cuda
             and add_mask.get_device() == F.get_device()):
         return None
@@ -68,7 +72,7 @@ def _device_mask(add_mask, k: int, F: torch.Tensor):
                          f"{add_mask.numel()}")
     m = add_mask.reshape(-1)
     if m.dtype is not torch.bool:
-        m = m != 0
+        m = m.to(_F32) > 0.5
     return m.contiguous()
 
 
@@ -142,9 +146,11 @@ def _pack(FA, FB, out, mask_bits: int, mask_t, n_sm: int,
 
 
 def pairwise_compose_blocked(FA, FB, add_mask) -> torch.Tensor:
-    """``FA: (N, k)``, ``FB: (M, k)``, ``add_mask: (k,)`` bool ->
+    """``FA: (N, k)``, ``FB: (M, k)``, ``add_mask: (k,)`` ->
     ``(N*M, k)`` float32 in the oracle's row-major order (row ``i*M + j``),
-    on the inputs' device.
+    on the inputs' device.  A bool mask selects "add" where it is true; a
+    mask of another dtype where it is above 0.5 in float32, as the
+    reference's blocked kernel reads it, on both routes.
 
     Inputs are cast to float32 first (the reference composes in fp32).
     CUDA inputs go through the kernel, CPU inputs through

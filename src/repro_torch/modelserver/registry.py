@@ -191,8 +191,16 @@ class ModelRegistry:
     rides the *ingest* path, never the recommend path — exactly the
     paper's asynchronous modeling engine.
 
+    ``vault`` (a :class:`repro_torch.persist.FrontierVault`) makes the
+    registry durable: every promotion write-behind persists the workload
+    record (snapshot lineage + traces), and :meth:`rehydrate` loads
+    persisted workloads on a cold start so ``task_spec`` serves the
+    pre-restart model version immediately — with the exact pre-restart
+    ``TaskSpec.signature()``, which is what lets the service's frontier
+    restore hit (DESIGN.md §13).
+
     ``device`` (``None`` means ``cuda``) is where every model is fit,
-    scored and served.
+    scored and served, rehydrated ones included.
     """
 
     def __init__(
@@ -204,6 +212,7 @@ class ModelRegistry:
         retrain_every: int | None = None,
         retrain_on_drift: bool = False,
         trim_on_drift: int | None = None,
+        vault=None,
         device=None,
     ):
         if max_traces < 8:
@@ -218,6 +227,9 @@ class ModelRegistry:
         self.retrain_on_drift = retrain_on_drift
         self.trim_on_drift = trim_on_drift
         self.device = resolve_device(device)
+        self.vault = vault
+        self.workloads_persisted = 0
+        self.workloads_rehydrated = 0
         self._records: dict[str, WorkloadRecord] = {}
         self._subscribers: list[Callable[[ModelEvent], None]] = []
         self._lock = threading.RLock()
@@ -407,7 +419,68 @@ class ModelRegistry:
                                  events=events)
         for ev in events:
             self._emit(ev)
+        if events and self.vault is not None:
+            # write-behind durability: a promotion persists the record
+            # (lineage + traces) so a restarted replica rehydrates at
+            # this version.  Outside the lock: encode copies under it.
+            self.persist_workload(sig)
         return report
+
+    # -- durability (repro_torch.persist, DESIGN.md §13) -------------------
+    def persist_workload(self, sig: str) -> bool:
+        """Write-behind persist one workload record to the vault.
+
+        Returns False when no vault is attached or the workload has no
+        promoted snapshot yet (nothing a restart could serve)."""
+        from ..persist import codecs
+
+        if self.vault is None:
+            return False
+        with self._lock:
+            rec = self._get(sig)
+            if rec.active is None:
+                return False
+            arrays, meta = codecs.encode_workload(rec)
+        self.vault.put_model(sig, arrays, meta)
+        self.workloads_persisted += 1
+        return True
+
+    def rehydrate(self, vault=None) -> list[str]:
+        """Load every persisted workload record from the vault (cold
+        start), its models on this registry's device.  Returns the
+        rehydrated signatures.
+
+        Records already registered in this process are skipped (live
+        state wins over disk).  Rehydrated records resume at their
+        persisted snapshot lineage — ``task_spec`` serves the persisted
+        model version immediately, with the exact pre-restart task
+        signature — and start drift scoring fresh (see
+        ``repro_torch.persist.codecs.encode_workload``).  No events are
+        emitted: a restart is not a model change.
+        """
+        from ..persist import codecs
+
+        vault = vault if vault is not None else self.vault
+        if vault is None:
+            return []
+        loaded = []
+        for wsig in vault.model_workloads():
+            with self._lock:
+                if wsig in self._records:
+                    continue
+            got = vault.get_model(wsig)
+            if got is None:
+                continue
+            arrays, meta = got
+            rec = codecs.decode_workload(arrays, meta,
+                                         drift_config=self.drift_config,
+                                         device=self.device)
+            with self._lock:
+                if rec.sig not in self._records:
+                    self._records[rec.sig] = rec
+                    self.workloads_rehydrated += 1
+                    loaded.append(rec.sig)
+        return loaded
 
     def nearest_workload(self, sig: str) -> str | None:
         """The workload whose trace embedding is nearest to ``sig``'s —

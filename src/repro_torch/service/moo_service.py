@@ -34,6 +34,10 @@ compose their stages' frontiers through the pairwise-compose kernel when
 (:meth:`create_workload_session`, or a DAG's ``workloads``) follow the
 registry: a model version bump or a drift event invalidates them, and the
 next probe pass warm re-solves them under the new model (DESIGN.md §9).
+A service with a ``vault`` (:class:`repro_torch.persist.FrontierVault`)
+snapshots its sessions' states there and restores them on a restart
+(DESIGN.md §13); :class:`repro_torch.frontdesk.FrontDesk` is the admission
+plane in front of it (DESIGN.md §12).
 """
 
 from __future__ import annotations
@@ -50,7 +54,12 @@ from ..alloc import Candidate
 from ..core import MOGDConfig, MOOProblem, ProgressiveFrontier
 from ..core.dag import ComposedFrontier, JobDAG
 from ..core.mogd import MOGDSolver, solve_grouped
-from ..core.progressive_frontier import PFResult, PFState
+from ..core.progressive_frontier import (
+    PFResult,
+    PFState,
+    export_pf_state,
+    live_seed_points,
+)
 from ..core.task import Preference, TaskSpec, preference_from_legacy
 from ..exec import ProbeExecutor
 from ..kernels.platform import resolve_device
@@ -58,7 +67,7 @@ from ..obs import Observability
 
 _svc_ids = itertools.count()  # per-instance metric label suffix
 
-ROUND_PHASES = ("prepare_s", "solve_s", "absorb_s")
+ROUND_PHASES = ("prepare_s", "solve_s", "absorb_s", "persist_s")
 
 
 @dataclasses.dataclass
@@ -128,6 +137,9 @@ class _Session:
     registry: object | None = None
     workload: str | None = None
     stale: bool = False
+    # durable-vault bookkeeping (DESIGN.md §13): the probe count at the
+    # last vault snapshot — persistence triggers fire only on progress
+    probes_at_snapshot: int = 0
     # budget-plane telemetry (DESIGN.md §15): EMA of hypervolume delta
     # per probe across absorbs, and rounds since the policy last gave
     # this session a non-zero allocation (the staleness feature)
@@ -151,6 +163,8 @@ class MOOService:
         use_kernel: bool = False,
         executor: ProbeExecutor | None = None,
         structure_coalescing: bool = True,
+        vault=None,
+        vault_autosave_probes: int = 64,
         obs: Observability | None = None,
         budget_policy=None,
         device=None,
@@ -189,6 +203,8 @@ class MOOService:
         self._problems: dict[tuple, MOOProblem] = {}
         self._ids = itertools.count()
         self._lock = threading.RLock()
+        # sessions whose init phase runs now, with the lock released
+        self._initializing: set[str] = set()
         # model-server subscriptions: workload sig -> watching session ids
         self._watch: dict[str, set[str]] = {}
         self._registries: list = []
@@ -217,8 +233,25 @@ class MOOService:
             help="probe rows solving with the service lock released")
         self._g_in_flight_dispatches = m.gauge(
             "service.in_flight_dispatches", self._labels)
+        # durable frontier plane (repro_torch.persist.FrontierVault,
+        # DESIGN.md §13): session states snapshot to the vault on
+        # convergence, on close, and every ``vault_autosave_probes``
+        # probes; a cold restart restores exact-signature entries (zero
+        # probes to first recommend) or seeds PF from an older version's
+        # frontier.
+        self.vault = vault
+        self.vault_autosave_probes = max(1, int(vault_autosave_probes))
+        self._c_vault_restores = m.counter(
+            "service.vault_restores", self._labels)
+        self._c_vault_seeds = m.counter(
+            "service.vault_seeds", self._labels)
+        self._c_vault_snapshots = m.counter(
+            "service.vault_snapshots", self._labels)
+        self._c_vault_tombstones = m.counter(
+            "service.vault_tombstones", self._labels)
         # per-phase round timing (perf_counter seconds; always measured,
-        # tracing on or off)
+        # tracing on or off — a front desk's latency attribution divides
+        # each ticket's round wall by these proportions)
         self._h_round = {
             p: m.histogram(f"service.round_{p}", self._labels)
             for p in ROUND_PHASES}
@@ -279,6 +312,26 @@ class MOOService:
         """Dispatches solving now, with the service lock released."""
         return int(self._g_in_flight_dispatches.value)
 
+    @property
+    def vault_restores(self) -> int:
+        """Sessions restored whole from an exact-signature vault entry."""
+        return int(self._c_vault_restores.value)
+
+    @property
+    def vault_seeds(self) -> int:
+        """Workload sessions seeded from an older version's entry."""
+        return int(self._c_vault_seeds.value)
+
+    @property
+    def vault_snapshots(self) -> int:
+        """Session states handed to the vault."""
+        return int(self._c_vault_snapshots.value)
+
+    @property
+    def vault_tombstones(self) -> int:
+        """Vault entries killed by drift events."""
+        return int(self._c_vault_tombstones.value)
+
     # ------------------------------------------------------------------
     def _solver_for(self, problem: MOOProblem, signature: tuple,
                     mogd: MOGDConfig) -> MOGDSolver:
@@ -321,8 +374,65 @@ class MOOService:
             sid = self._open(problem, sig, spec=spec,
                              mode=mode, mogd=mogd, grid_l=grid_l,
                              batch_rects=batch_rects, target=target)
+            # durable warm restart (DESIGN.md §13): an exact-signature
+            # vault entry restores the full PF state — frontier, pareto
+            # mask, rectangle queue — so recommend serves with ZERO new
+            # probe dispatches
+            self._try_restore_locked(self._sessions[sid])
             self._evict_cold_tasks()  # after _open: new session counts live
             return sid
+
+    def _try_restore_locked(self, sess: _Session) -> bool:
+        """Exact-signature restore from the vault (lock held).  The store
+        is rebuilt on the service's device with its kernel routing
+        (``FrontierStore.from_state``), its rows, mask and counters as
+        they were written."""
+        if self.vault is None or sess.state is not None:
+            return False
+        try:
+            got = self.vault.get_frontier(sess.signature[0])
+            if got is None:
+                return False
+            arrays, meta = got
+            state = sess.engine.import_state(arrays, meta)
+        except Exception as e:  # corrupt/incompatible entry: a restart
+            # must still work — fall through to the cold-solve path
+            warnings.warn(f"vault restore failed for {sess.session_id}: "
+                          f"{e}", RuntimeWarning, stacklevel=2)
+            return False
+        sess.state = state
+        sess.probes_at_snapshot = state.probes
+        self._c_vault_restores.inc()
+        return True
+
+    def _vault_identity(self, sess: _Session) -> tuple:
+        """The ``(workload, version)`` components a vault entry's manifest
+        carries for invalidation / seed-donor scans (None for plain
+        sessions)."""
+        mid = sess.spec.model_id if sess.spec is not None else None
+        if (sess.workload is not None and isinstance(mid, tuple)
+                and len(mid) == 3 and mid[0] == "modelserver"):
+            return sess.workload, int(mid[2])
+        return sess.workload, None
+
+    def _persist_session_locked(self, sess: _Session, reason: str) -> bool:
+        """Export a session's PF state and enqueue a write-behind vault
+        put (lock held; the export copies host arrays, the disk write
+        happens on the vault's writer thread).  Stale sessions and empty
+        frontiers are never persisted."""
+        if (self.vault is None or sess.state is None or sess.stale
+                or sess.state.store.n_points == 0):
+            return False
+        arrays, meta = export_pf_state(sess.state)
+        meta["reason"] = reason
+        workload, version = self._vault_identity(sess)
+        ok = self.vault.put_frontier(
+            sess.signature[0], arrays, meta,
+            workload=workload, version=version)
+        if ok:
+            sess.probes_at_snapshot = sess.state.probes
+            self._c_vault_snapshots.inc()
+        return ok
 
     def _compile_cached(self, spec: TaskSpec, sig: tuple) -> MOOProblem:
         """Signature-keyed compile-or-reuse (LRU re-insertion on hit)."""
@@ -518,13 +628,20 @@ class MOOService:
 
     def close_session(self, session_id: str) -> None:
         """Close a session (unknown ids are ignored)."""
-        # content signatures are recurring jobs: compiled problems and
-        # solvers stay warm for the next submission (bounded by
-        # _evict_cold_tasks)
         with self._lock:
             sess = self._sessions.pop(session_id, None)
-            if sess is not None:
-                self._unwatch(sess)
+            if sess is None:
+                return
+            # last-chance durability: closing a session with probes spent
+            # since its last snapshot persists the frontier so the next
+            # process can warm-start it
+            if (sess.state is not None and not sess.stale
+                    and sess.state.probes > sess.probes_at_snapshot):
+                self._persist_session_locked(sess, "close")
+            # content signatures are recurring jobs: compiled problems and
+            # solvers stay warm for the next submission (bounded by
+            # _evict_cold_tasks)
+            self._unwatch(sess)
 
     def _unwatch(self, sess: _Session) -> None:
         """Drop a session from its workload's watch set (lock held)."""
@@ -582,6 +699,21 @@ class MOOService:
             sess.workload = workload
             self._watch.setdefault(workload, set()).add(sid)
             self._recheck_watched(sess)
+            # vault warm-start tier 2 (DESIGN.md §13): no exact-signature
+            # entry (create_session already tried), but a surviving entry
+            # for the SAME workload under an OLDER model version donates
+            # its pareto X as the initial rectangle set — k reference
+            # solves instead of a cold full solve
+            if (self.vault is not None and sess.state is None
+                    and not sess.stale):
+                donor = self.vault.latest_for_workload(workload)
+                if donor is not None:
+                    arrays, _meta = donor
+                    X_old = live_seed_points(arrays)
+                    if len(X_old):
+                        sess.state = sess.engine.seed(X_old)
+                        sess.probes_at_snapshot = sess.state.probes
+                        self._c_vault_seeds.inc()
             return sid
 
     def watch_workload(self, session_id: str, registry,
@@ -654,6 +786,14 @@ class MOOService:
                 # a frontier/solver built against stale predictions
                 self._problems.pop(sess.signature, None)
                 self._solvers.pop(sess.solver_key, None)
+            # drift invalidation extends to the DURABLE plane: frontiers
+            # persisted under the drifted regime must never warm-start a
+            # post-restart session (DESIGN.md §13) — tombstone every vault
+            # entry at or below the drifted version, synchronously
+            if event.kind == "drift" and self.vault is not None:
+                killed = self.vault.tombstone_workload(
+                    event.workload, version=event.version, reason="drift")
+                self._c_vault_tombstones.inc(killed)
 
     def _refresh_stale_locked(self) -> None:
         """Warm re-solve every stale session whose registry now serves a
@@ -835,8 +975,10 @@ class MOOService:
         Returns ``{"batches", "probes", "sessions", "per_session":
         {sid: probes}, "exhausted": [sid, ...], "timing": {...}}`` where
         ``exhausted`` names sessions whose rectangle queue is now empty
-        (their frontier is final) and ``timing`` carries the round's
-        measured prepare/solve/absorb seconds.
+        (their frontier is final — a front desk's pending tickets can
+        complete immediately) and ``timing`` carries the round's measured
+        prepare/solve/absorb/persist seconds (the front desk's per-ticket
+        latency attribution divides by these).
 
         ``context`` (optional) carries per-session serving facts for the
         budget policy — ``{sid: {"slo", "deadline_slack_s", "wall_ema_s",
@@ -852,9 +994,10 @@ class MOOService:
                     origin: str | None = None,
                     parent_span=None,
                     context: dict | None = None) -> dict:
-        """One probe round over ``sessions``: prepare (pop probe cells)
-        under the service lock, solve each structure group's batch with
-        the lock RELEASED, re-acquire to absorb results.  ``recommend``
+        """One probe round over ``sessions``: initialize new sessions (the
+        k reference solves) with the service lock RELEASED, prepare (pop
+        probe cells) under it, solve each structure group's batch with
+        the lock released again, re-acquire to absorb results.  ``recommend``
         and ``stats`` therefore never wait on a device dispatch.  A failed
         dispatch restores every popped-but-unsolved cell (no uncertain
         space leaks) before re-raising.
@@ -890,13 +1033,34 @@ class MOOService:
         t_prep0 = time.perf_counter()
         with self._lock:
             self._refresh_stale_locked()
+            fresh = [s for s in sessions
+                     if self._sessions.get(s.session_id) is s
+                     and s.state is None
+                     and s.session_id not in self._initializing]
+            self._initializing.update(s.session_id for s in fresh)
+        # new sessions' init phase (Alg. 1's k reference solves: device
+        # work) runs with the service lock RELEASED, as the probe dispatch
+        # below does, so recommend and stats never wait on it; a session
+        # another round is initializing sits this round out
+        try:
+            for sess in fresh:
+                state = sess.engine.initialize()
+                with self._lock:
+                    if (self._sessions.get(sess.session_id) is sess
+                            and sess.state is None):
+                        sess.state = state
+        finally:
+            with self._lock:
+                self._initializing.difference_update(
+                    s.session_id for s in fresh)
+        with self._lock:
             groups: dict[tuple, list[_Session]] = {}
             singles: list[_Session] = []
             for sess in sessions:
                 if self._sessions.get(sess.session_id) is not sess:
                     continue  # closed (or warm-replaced) since the snapshot
                 if sess.state is None:
-                    sess.state = sess.engine.initialize()
+                    continue  # initializing in another round
                 if not len(sess.state.queue):
                     out["exhausted"].append(sess.session_id)
                     continue  # exhausted — frontier is final
@@ -1038,6 +1202,34 @@ class MOOService:
                     out["sessions"] += 1
                     out["per_session"][sess.session_id] = (
                         out["per_session"].get(sess.session_id, 0) + n)
+        # -- write-behind durability sweep (DESIGN.md §13) -------------
+        # snapshot sessions that just converged (queue drained — their
+        # frontier is final) or crossed the autosave probe budget; the
+        # disk write happens on the vault's writer thread, so this only
+        # pays for the host export under the lock
+        if self.vault is not None:
+            t_per0 = time.perf_counter()
+            persisted = 0
+            with self._lock:
+                for sess in sessions:
+                    if self._sessions.get(sess.session_id) is not sess:
+                        continue
+                    st = sess.state
+                    if st is None or sess.stale:
+                        continue
+                    done = not len(st.queue)
+                    due = (st.probes - sess.probes_at_snapshot
+                           >= self.vault_autosave_probes)
+                    if st.probes > sess.probes_at_snapshot and (done or due):
+                        if self._persist_session_locked(
+                                sess, "converged" if done else "autosave"):
+                            persisted += 1
+            t_per1 = time.perf_counter()
+            timing["persist_s"] += t_per1 - t_per0
+            if tr.enabled and persisted:
+                tr.record_span("service.persist", t_per0, t_per1,
+                               cat="service", parent=round_sp,
+                               args={"snapshots": persisted})
         return out
 
     def run_until(self, min_probes: int, max_rounds: int = 10_000) -> dict:
@@ -1117,7 +1309,10 @@ class MOOService:
 
     def session_exhausted(self, session_id: str) -> bool:
         """True when a session has a finalized frontier (state exists and
-        its rectangle queue is empty).  Unknown ids return False."""
+        its rectangle queue is empty) — a vault-restored session reports
+        True before any probe is dispatched, which lets a front desk
+        complete its ticket at submit time (the warm-restart fast path).
+        Unknown ids return False."""
         with self._lock:
             sess = self._sessions.get(session_id)
             if sess is None or sess.state is None:
@@ -1182,6 +1377,11 @@ class MOOService:
                     if s.state is None or len(s.state.queue)),
                 "in_flight_probes": self.in_flight_probes,
                 "in_flight_dispatches": self.in_flight_dispatches,
+                # durable frontier plane telemetry (DESIGN.md §13)
+                "vault_restores": self.vault_restores,
+                "vault_seeds": self.vault_seeds,
+                "vault_snapshots": self.vault_snapshots,
+                "vault_tombstones": self.vault_tombstones,
                 # probe-budget plane telemetry (DESIGN.md §15): what the
                 # policy granted vs what the legacy uniform schedule
                 # would have spent, over the same rounds

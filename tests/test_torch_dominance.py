@@ -38,8 +38,21 @@ from repro_torch.kernels.pareto_filter import (
 )
 
 CPU = "cpu"
+# float add/max masks: a weight in (0, 0.5] means "max" in the reference's
+# blocked kernel (it adds where mask > 0.5), so the port must read it so too
+FLOAT_MASKS = ([0.5, 1.0], [0.51, 0.0], [1.0, 1.0])
 SMEM_LIMIT = 48 * 1024  # static + dynamic shared memory without an opt-in
 GRID_LIMIT = 2 ** 31 - 1
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file: its tensors are small, and the
+    suite runs in parallel worker processes that idle threads would slow."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _front(n, k, seed, inf_rows=0, dups=0, nan_rows=0):
@@ -341,6 +354,40 @@ class TestValidators:
         }[case]
         with pytest.raises(ValueError):
             pairwise_compose_blocked(FA, FB, mask)
+
+    @pytest.mark.parametrize("mask", FLOAT_MASKS)
+    def test_compose_float_mask_equals_reference(self, mask):
+        """A float mask is read as the reference's blocked kernel reads it
+        (interpret mode): "add" where it is above 0.5, exactly."""
+        from repro.kernels.compose import (
+            pairwise_compose_blocked as j_compose_blocked,
+        )
+
+        cases = [(np.array([[1, 2], [3, 4]], np.float32),
+                  np.array([[10, 0], [0, 10]], np.float32)),
+                 (_front(7, 2, 11, 1), _front(5, 2, 12, 1))]
+        for FA, FB in cases:
+            want = np.asarray(j_compose_blocked(FA, FB, np.asarray(
+                mask, np.float32), interpret=True))
+            for m in (mask, np.asarray(mask, np.float64),
+                      torch.tensor(mask, dtype=torch.float32)):
+                got = pairwise_compose_blocked(torch.as_tensor(FA),
+                                               torch.as_tensor(FB), m)
+                np.testing.assert_array_equal(got.numpy(), want)
+        # row 0 of the first case: 0.5 is "max" ([10, 2]), not "add"
+        got = pairwise_compose_blocked(torch.as_tensor(cases[0][0]),
+                                       torch.as_tensor(cases[0][1]),
+                                       [0.5, 1.0])
+        if mask == [0.5, 1.0]:
+            np.testing.assert_array_equal(got[0].numpy(), [10.0, 2.0])
+        # a bool mask keeps its meaning
+        bools = np.asarray(mask, np.float32) > 0.5
+        np.testing.assert_array_equal(
+            pairwise_compose_blocked(torch.as_tensor(cases[1][0]),
+                                     torch.as_tensor(cases[1][1]),
+                                     bools).numpy(),
+            np.asarray(j_compose_blocked(cases[1][0], cases[1][1], bools,
+                                         interpret=True)))
 
     def test_compose_takes_float32_as_is(self):
         a = torch.ones((3, 2))

@@ -64,6 +64,16 @@ COMPOSE_EDGES = [(n, m, k, True) for k in (1, 2, 3, 4, 5)
 COMPOSE_EDGES += [(4096, 4096, 2, True)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's host-side work: the suite runs
+    in parallel worker processes that idle threads would slow."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def cuda_device():
     """The card, or a skip on hosts without one (decided at run time)."""
@@ -193,6 +203,18 @@ class TestKernelsOnCard:
             want = pairwise_compose_plain(FA, FB, add.cpu())
             assert got.shape == (n * m, k)
             assert _same_bits(got, want)
+
+    @pytest.mark.parametrize("mask", [[0.5, 1.0, 0.25], [0.51, 0.0, 2.0],
+                                      [1.0, 1.0, 1.0]])
+    def test_compose_float_mask_equals_plain(self, cuda_device, mask):
+        """A float mask, from the host and held on the card, is read at
+        > 0.5 on the kernel's route as on the plain route, bit for bit."""
+        FA, FB, _ = _compose_case(130, 200, 3, 5, cuda_device, True)
+        want = pairwise_compose_plain(FA.cpu(), FB.cpu(), torch.tensor(mask))
+        for add in (mask, torch.tensor(mask),
+                    torch.tensor(mask, device=cuda_device)):
+            got = pairwise_compose_blocked(FA, FB, add)
+            assert _same_bits(got.cpu(), want)
 
     def test_store_on_card_equals_store_on_host(self, cuda_device):
         """A kernel-path FrontierStore on the card and the same store on
@@ -908,3 +930,72 @@ class TestScanStatesOnCard:
         assert not platform.plain_on_cuda_counts()
         _allclose(got, ref.mamba_scan(*args))
         assert torch.equal(args[5], cached)
+
+
+@pytest.mark.cuda
+class TestServingPlanesOnCard:
+    """The front desk and the vault over a kernel-path service on the card:
+    the dispatcher thread launches the descend and dominance kernels with
+    no plain version on the card, and a vault round trip restores a
+    session's state bit for bit, on the card, with no dispatch."""
+
+    FAST = MOGDConfig(steps=60, multistart=6)
+
+    def _service(self, dev, **kw):
+        from repro_torch.service import MOOService
+
+        return MOOService(mogd=self.FAST, batch_rects=2, grid_l=2,
+                          use_kernel=True, device=dev, **kw)
+
+    def test_frontdesk_dispatches_through_the_kernels(self, cuda_device):
+        from repro_torch.core.synthetic import mlp_surrogate_task
+        from repro_torch.frontdesk import FrontDesk
+
+        svc = self._service(cuda_device)
+        specs = [mlp_surrogate_task(seed=i, device=cuda_device)
+                 for i in range(4)]
+        platform.reset_launches()
+        with FrontDesk(svc, capacity=16) as desk:
+            tickets = [desk.submit(spec=s, n_probes=8, slo="batch")
+                       for s in specs]
+            for t in tickets:
+                assert t.wait(timeout=120.0), "dispatcher never completed"
+        launches = platform.launch_counts()
+        assert all(t.ok and t.credited >= 8 for t in tickets)
+        assert launches.get("descend_batch", 0) > 0
+        assert launches.get("cross_dominator_counts", 0) > 0
+        assert not platform.plain_on_cuda_counts()
+        for t in tickets:
+            b = t.breakdown()
+            assert abs(b["accounted_s"] - b["e2e_s"]) <= 1e-6
+            assert np.isfinite(svc.recommend(t.session_id).objectives).all()
+
+    def test_vault_round_trip(self, cuda_device, tmp_path):
+        from repro_torch.core.progressive_frontier import export_pf_state
+        from repro_torch.core.synthetic import mlp_surrogate_task
+        from repro_torch.persist import FrontierVault
+
+        spec = mlp_surrogate_task(seed=3, device=cuda_device)
+        svc = self._service(cuda_device,
+                            vault=FrontierVault(tmp_path, write_behind=False))
+        sid = svc.create_session(spec)
+        svc.run_until(min_probes=12)
+        want, want_meta = export_pf_state(svc._sessions[sid].state)
+        rec = svc.recommend(sid)
+        svc.close_session(sid)
+        again = self._service(cuda_device, vault=FrontierVault(tmp_path))
+        sid2 = again.create_session(spec)
+        assert again.vault_restores == 1 and again.executor.dispatches == 0
+        state = again._sessions[sid2].state
+        assert state.store.device.type == "cuda"
+        got, got_meta = export_pf_state(state)
+        assert sorted(got) == sorted(want)
+        for k in want:
+            assert got[k].tobytes() == want[k].tobytes(), k
+        assert got_meta["probes"] == want_meta["probes"]
+        assert again.recommend(sid2).config == rec.config
+        # the restored session keeps solving through the kernels
+        platform.reset_launches()
+        assert again.step_all(rounds=1)["probes"] > 0
+        assert platform.launch_counts().get("cross_dominator_counts", 0) > 0
+        assert not platform.plain_on_cuda_counts()

@@ -212,11 +212,27 @@ class TestRegistry:
             torch.as_tensor(X, dtype=torch.float32))
         assert s.shape == (len(X), 2) and bool((s > 0).all())
 
-    def test_the_vault_waits_for_the_persistence_plane(self):
-        with pytest.raises(TypeError):
-            ModelRegistry(device=CPU, vault=None)
-        for name in ("persist_workload", "rehydrate"):
-            assert not hasattr(ModelRegistry, name)
+    def test_the_vault_waits_for_the_persistence_plane(self, tmp_path):
+        """The persistence plane is ported: a registry with a vault
+        persists each promotion, and a fresh one rehydrates the workload
+        on the host with the same task signature and no fit."""
+        from repro_torch.persist import FrontierVault
+
+        rng = np.random.default_rng(0)
+        vault = FrontierVault(tmp_path, write_behind=False)
+        reg = make_registry(vault=vault)
+        w = reg.register_workload(("toy", "w1"), KNOBS, OBJECTIVES)
+        feed(reg, w, 160, rng)
+        assert reg.retrain(w).improved
+        assert reg.workloads_persisted == 1
+        assert reg.persist_workload(w) and reg.workloads_persisted == 2
+        fresh = make_registry(vault=vault)
+        assert fresh.rehydrate() == [w] and fresh.workloads_rehydrated == 1
+        assert fresh.task_spec(w).signature() == reg.task_spec(w).signature()
+        assert fresh.info(w)["version"] == 1
+        assert all(m.device.type == "cpu"
+                   for m in fresh.snapshot(w).models)
+        assert make_registry().rehydrate() == []  # no vault, nothing
 
     def test_default_device_is_cuda_and_raises_here(self):
         if torch.cuda.is_available():

@@ -197,11 +197,19 @@ class TestServiceAgainstReference:
             MOOService()
 
     @pytest.mark.parametrize("kw", [
-        dict(vault=None), dict(vault_autosave_probes=8), dict(mesh=None),
-        dict(kernel_interpret=True)])
+        dict(mesh=None), dict(kernel_interpret=True)])
     def test_later_slices_parameters_are_refused(self, kw):
         with pytest.raises(TypeError):
             MOOService(device=CPU, **kw)
+
+    @pytest.mark.parametrize("kw", [
+        dict(vault=None), dict(vault_autosave_probes=8)])
+    def test_vault_parameters_are_accepted(self, kw):
+        svc = MOOService(device=CPU, **kw)
+        assert svc.vault is None
+        assert svc.vault_autosave_probes == kw.get("vault_autosave_probes",
+                                                   64)
+        assert svc.stats()["vault_snapshots"] == 0
 
     @pytest.mark.parametrize("kw", [
         dict(workloads={"extract": "w"}),
@@ -216,15 +224,30 @@ class TestServiceAgainstReference:
             svc.create_dag_session(_etl_job(P), **kw)
         assert len(svc) == 0
 
-    def test_later_slices_methods_are_absent(self):
-        """The vault's surface waits for the persistence plane."""
+    def test_later_slices_methods_are_absent(self, tmp_path):
+        """The vault's surface, refused until the persistence plane was
+        ported, is there and works on the host: a closed session is
+        snapshotted, and a fresh service restores it with no dispatch."""
         from repro_torch.modelserver import ModelRegistry
+        from repro_torch.persist import FrontierVault
 
-        for name in ("vault_restores", "vault_seeds", "vault_snapshots",
-                     "vault_tombstones"):
-            assert not hasattr(MOOService, name)
         for name in ("persist_workload", "rehydrate"):
-            assert not hasattr(ModelRegistry, name)
+            assert callable(getattr(ModelRegistry, name))
+        vault = FrontierVault(tmp_path, write_behind=False)
+        svc = MOOService(mogd=FAST, batch_rects=2, grid_l=2, device=CPU,
+                         vault=vault)
+        sid = svc.create_session(sphere2_task(device=CPU))
+        svc.run_until(min_probes=6)
+        F, _ = svc.frontier(sid)
+        svc.close_session(sid)
+        assert svc.vault_snapshots == 1 and svc.vault_restores == 0
+        again = MOOService(mogd=FAST, batch_rects=2, grid_l=2, device=CPU,
+                           vault=vault)
+        sid2 = again.create_session(sphere2_task(device=CPU))
+        assert (again.vault_restores, again.vault_seeds,
+                again.vault_tombstones) == (1, 0, 0)
+        np.testing.assert_array_equal(again.frontier(sid2)[0], F)
+        assert again.stats()["executor_dispatches"] == 0
 
 
 # ---------------------------------------------------------------------------
