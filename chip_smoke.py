@@ -37,8 +37,11 @@ Phases (any failure exits non-zero; nothing is caught and turned into 0):
    every batch ticket done, every latency breakdown sum to its end-to-end
    time within 1e-6 s, the descend and dominance kernels launch from the
    dispatcher thread with no plain version on the card, and the rounds'
-   persist phase snapshot sessions; then every session is closed (its
-   state persisted) and the vault flushed.
+   persist phase snapshot sessions.  Then 4 waves of 6 tickets (2 a
+   class) on sessions the burst initialized, one wave at a time: the same
+   checks, and each class must have a ticket done through a dispatch.
+   Then every session is closed (its state persisted) and the vault
+   flushed.
 5c. The vault: a fresh service on the same directory re-creates every
    tenant's session: each one closed with a frontier is restored with no
    executor dispatch, its state (row history, Pareto mask, rectangle
@@ -160,6 +163,10 @@ FD_CLASSES = ("interactive", "standard", "batch")
 FD_PROBES = 16
 FD_RECOMMENDS = 200
 FD_RECOMMEND_PAUSE_S = 1e-3
+# after the burst (whose init phase sheds the interactive class), waves of
+# FD_WAVE_SIZE tickets, the classes dealt round-robin, on sessions the
+# burst initialized: each class must complete through a dispatch there
+FD_WAVES, FD_WAVE_SIZE = 4, 6
 # the model-server phase
 MS_WORKLOADS = 8  # MLP workloads of batch_suite(), plus one GP workload
 MS_TRACES = 2048  # per workload: half of the registry's max_traces
@@ -792,8 +799,7 @@ def descend_case(dev, G: int, R: int, S: int, D: int = 13,
 
 def descend_device_ms(dev, G=64, R=4, S=16, reps: int = 10) -> dict:
     """The profiler's device time of the resident descend kernel at the
-    timed shape (phase 2's case, 120 steps), and of everything one
-    ``descend_batch`` call runs on the card."""
+    timed shape (phase 2's case, 120 steps)."""
     from repro_torch.kernels.mogd_descend import descend_batch
 
     plan, cfg, params, batch = descend_case(dev, G, R, S)
@@ -801,8 +807,7 @@ def descend_device_ms(dev, G=64, R=4, S=16, reps: int = 10) -> dict:
     def call():
         descend_batch(plan, cfg, params, *batch)
 
-    return {"device_ms": device_ms(call, reps, name="descend_resident"),
-            "call_device_ms": device_ms(call, reps)}
+    return {"device_ms": device_ms(call, reps, name="descend_resident")}
 
 
 def descend_flops(plan, G: int, M: int, steps: int) -> float:
@@ -1398,6 +1403,44 @@ def _pcts(values) -> dict:
             "p95": float(np.quantile(v, 0.95))}
 
 
+def _check_tickets(tickets, label: str) -> None:
+    """Every ticket done, or shed where its class allows it; every batch
+    ticket done; every breakdown summing to its end-to-end latency."""
+    from repro_torch.frontdesk import DONE, SHED
+
+    states = {t.state for t in tickets}
+    if not states <= {DONE, SHED}:
+        fail(f"{label}: ticket states {sorted(states)}")
+    for t in tickets:
+        if t.state == SHED and not t.slo.sheddable:
+            fail(f"{label}: a {t.slo.name} ticket was shed")
+        b = t.breakdown()
+        if b["e2e_s"] is None or abs(b["accounted_s"] - b["e2e_s"]) > 1e-6:
+            fail(f"{label}: ticket {t.ticket_id} breakdown {b}")
+    if any(t.state != DONE for t in tickets if t.slo.name == "batch"):
+        fail(f"{label}: a batch ticket did not complete")
+
+
+def _by_class(tickets, admit_s) -> dict:
+    """Per SLO class: counts, and admit, queue-wait, dispatch and
+    end-to-end p50/p95 (of the done tickets, but admit)."""
+    from repro_torch.frontdesk import DONE, SHED
+
+    out = {}
+    for name in FD_CLASSES:
+        mine = [t for t in tickets if t.slo.name == name]
+        done = [t for t in mine if t.state == DONE]
+        out[name] = {
+            "tickets": len(mine), "done": len(done),
+            "shed": sum(t.state == SHED for t in mine),
+            "admit_s": _pcts([a for a, t in zip(admit_s, tickets)
+                              if t.slo.name == name]),
+            "queue_wait_s": _pcts([t.queue_wait_s for t in done]),
+            "dispatch_s": _pcts([t.dispatch_s for t in done]),
+            "e2e_s": _pcts([t.latency() for t in done])}
+    return out
+
+
 def phase_frontdesk(dev, vault_dir) -> dict:
     """A ``FrontDesk`` over ``MOOService(use_kernel=True, vault=...)`` with
     its dispatcher thread: one ticket of ``FD_PROBES`` probes for each
@@ -1414,7 +1457,7 @@ def phase_frontdesk(dev, vault_dir) -> dict:
 
     from repro_torch.core.progressive_frontier import export_pf_state
     from repro_torch.data.workloads import batch_suite
-    from repro_torch.frontdesk import DONE, SHED, FrontDesk
+    from repro_torch.frontdesk import DONE, FrontDesk
     from repro_torch.obs import Observability
     from repro_torch.persist import FrontierVault
     from repro_torch.service import MOOService
@@ -1477,6 +1520,28 @@ def phase_frontdesk(dev, vault_dir) -> dict:
     if not desk.drain(timeout=60.0):
         fail("front desk: live tickets left after every ticket ended")
     wall_s = time.perf_counter() - t0
+    # the waves: sessions the burst initialized, with probe work left
+    ready = [t.session_id for t in tickets
+             if svc._sessions[t.session_id].state is not None
+             and not svc.session_exhausted(t.session_id)]
+    if len(ready) < FD_WAVES * FD_WAVE_SIZE:
+        fail(f"front desk: {len(ready)} initialized sessions with work "
+             f"left, want {FD_WAVES * FD_WAVE_SIZE} for the waves")
+    wave, wave_admit_s = [], []
+    for w in range(FD_WAVES):
+        mine = []
+        for i in range(FD_WAVE_SIZE):
+            t1 = time.perf_counter()
+            mine.append(desk.submit(
+                session_id=ready[w * FD_WAVE_SIZE + i],
+                slo=FD_CLASSES[i % 3], n_probes=FD_PROBES))
+            wave_admit_s.append(time.perf_counter() - t1)
+        for t in mine:
+            if not t.wait(timeout=60.0) and not t.done:
+                fail(f"front desk: wave ticket {t.ticket_id} still pending")
+        wave += mine
+    if not desk.drain(timeout=60.0):
+        fail("front desk: live tickets left after the waves")
     # the launch counters are read after the dispatcher stops: in this
     # phase only its thread launches kernels, so they see one writer
     desk.stop()
@@ -1486,17 +1551,13 @@ def phase_frontdesk(dev, vault_dir) -> dict:
         fail("front desk: the recommend thread did not stop")
     if errors:
         fail(f"front desk: recommend failed: {errors[:3]}")
-    states = {t.state for t in tickets}
-    if not states <= {DONE, SHED}:
-        fail(f"front desk: ticket states {sorted(states)}")
-    for t in tickets:
-        if t.state == SHED and not t.slo.sheddable:
-            fail(f"front desk: a {t.slo.name} ticket was shed")
-        b = t.breakdown()
-        if b["e2e_s"] is None or abs(b["accounted_s"] - b["e2e_s"]) > 1e-6:
-            fail(f"front desk: ticket {t.ticket_id} breakdown {b}")
-    if any(t.state != DONE for t in tickets if t.slo.name == "batch"):
-        fail("front desk: a batch ticket did not complete")
+    _check_tickets(tickets, "front desk")
+    _check_tickets(wave, "front desk waves")
+    for name in FD_CLASSES:
+        if not any(t.state == DONE and t.dispatch_s > 0.0
+                   for t in wave if t.slo.name == name):
+            fail(f"front desk waves: no {name} ticket done through a "
+                 f"dispatch")
     spans = svc.obs.tracer.spans()
     windows = sorted((sp.t0, sp.t1) for sp in spans
                      if sp.name == "frontdesk.dispatch")
@@ -1509,18 +1570,8 @@ def phase_frontdesk(dev, vault_dir) -> dict:
     if persist_s <= 0.0 or svc.vault_snapshots <= 0:
         fail(f"front desk: persist_s {persist_s}, vault snapshots "
              f"{svc.vault_snapshots}")
-    by_class = {}
-    for name in FD_CLASSES:
-        mine = [t for t in tickets if t.slo.name == name]
-        done = [t for t in mine if t.state == DONE]
-        by_class[name] = {
-            "tickets": len(mine), "done": len(done),
-            "shed": sum(t.state == SHED for t in mine),
-            "admit_s": _pcts([a for a, t in zip(admit_s, tickets)
-                              if t.slo.name == name]),
-            "queue_wait_s": _pcts([t.queue_wait_s for t in done]),
-            "dispatch_s": _pcts([t.dispatch_s for t in done]),
-            "e2e_s": _pcts([t.latency() for t in done])}
+    by_class = _by_class(tickets, admit_s)
+    wave_by_class = _by_class(wave, wave_admit_s)
     # the sessions' states as the vault phase must find them again
     closed = {}
     for spec, t in zip(specs, tickets):
@@ -1540,7 +1591,7 @@ def phase_frontdesk(dev, vault_dir) -> dict:
     vault.close()
     plane = desk.stats()
     out = {"tickets": len(tickets), "wall_s": wall_s, "submit_s": submit_s,
-           "by_class": by_class,
+           "by_class": by_class, "wave_by_class": wave_by_class,
            "recommend_s": {"while_dispatching": _pcts(rec_busy),
                            "all": _pcts([dt for _, dt in rec_s])},
            "dispatch_walls_s": [b - a for a, b in windows],
@@ -2615,7 +2666,7 @@ def main() -> int:
         timing.update(compose_device_ms(dev, *timing["shape"]))
     d.update(descend_device_ms(dev))
     log(f"device times: pareto {p_times}; compose {c_main}, {c_big}; "
-        f"descend {d['device_ms']} (whole call {d['call_device_ms']})")
+        f"descend {d['device_ms']}")
     mark("device_times")
     # phase 7: LM serving (counted per model inside)
     lm = phase_lm(dev)
@@ -2773,9 +2824,14 @@ def main() -> int:
         n: {k: c[k] for k in ("admit_s", "queue_wait_s", "dispatch_s",
                               "e2e_s")}
         for n, c in desk["by_class"].items()}}), flush=True)
+    print(json.dumps({"frontdesk_wave_latency_s": {
+        n: {k: c[k] for k in ("admit_s", "queue_wait_s", "dispatch_s",
+                              "e2e_s")}
+        for n, c in desk["wave_by_class"].items()}}), flush=True)
     print(json.dumps({"frontdesk_shed": {
-        n: {"done": c["done"], "shed": c["shed"]}
-        for n, c in desk["by_class"].items()}}), flush=True)
+        part: {n: {"done": c["done"], "shed": c["shed"]}
+               for n, c in desk[part].items()}
+        for part in ("by_class", "wave_by_class")}}), flush=True)
     print(json.dumps({"frontdesk_recommend_s": desk["recommend_s"]}),
           flush=True)
     print(json.dumps({"frontdesk_launches": fd_launches}), flush=True)

@@ -203,8 +203,10 @@ class MOOService:
         self._problems: dict[tuple, MOOProblem] = {}
         self._ids = itertools.count()
         self._lock = threading.RLock()
-        # sessions whose init phase runs now, with the lock released
+        # sessions whose init phase runs now, with the lock released; a
+        # round that holds one of them waits on ``_init_done`` for it
         self._initializing: set[str] = set()
+        self._init_done = threading.Condition(self._lock)
         # model-server subscriptions: workload sig -> watching session ids
         self._watch: dict[str, set[str]] = {}
         self._registries: list = []
@@ -1040,19 +1042,37 @@ class MOOService:
             self._initializing.update(s.session_id for s in fresh)
         # new sessions' init phase (Alg. 1's k reference solves: device
         # work) runs with the service lock RELEASED, as the probe dispatch
-        # below does, so recommend and stats never wait on it; a session
-        # another round is initializing sits this round out
+        # below does, so recommend and stats never wait on it.  A state
+        # is installed only if the engine that built it still serves the
+        # session: a model refresh meanwhile (another thread's round)
+        # swaps the engine, and the init runs again on the new one
         try:
             for sess in fresh:
-                state = sess.engine.initialize()
                 with self._lock:
-                    if (self._sessions.get(sess.session_id) is sess
-                            and sess.state is None):
-                        sess.state = state
+                    engine = sess.engine
+                while engine is not None:
+                    state = engine.initialize()
+                    with self._lock:
+                        if (self._sessions.get(sess.session_id) is not sess
+                                or sess.state is not None):
+                            engine = None  # closed, or set by probe()
+                        elif sess.engine is engine:
+                            sess.state = state
+                            engine = None
+                        else:
+                            engine = sess.engine
         finally:
             with self._lock:
                 self._initializing.difference_update(
                     s.session_id for s in fresh)
+                self._init_done.notify_all()
+        # a session another round is initializing: wait for its state (the
+        # reference's round would have waited on the lock for it)
+        with self._lock:
+            self._init_done.wait_for(lambda: not any(
+                s.session_id in self._initializing
+                and self._sessions.get(s.session_id) is s
+                for s in sessions))
         with self._lock:
             groups: dict[tuple, list[_Session]] = {}
             singles: list[_Session] = []
@@ -1060,7 +1080,7 @@ class MOOService:
                 if self._sessions.get(sess.session_id) is not sess:
                     continue  # closed (or warm-replaced) since the snapshot
                 if sess.state is None:
-                    continue  # initializing in another round
+                    continue  # its init raised in another round
                 if not len(sess.state.queue):
                     out["exhausted"].append(sess.session_id)
                     continue  # exhausted — frontier is final

@@ -17,6 +17,7 @@ compare in float64 after a float32 forward).
 from __future__ import annotations
 
 import dataclasses
+import threading
 
 import numpy as np
 import pytest
@@ -355,6 +356,73 @@ class TestDrift:
         assert svc.session_info(sid).stale
         assert svc.stats()["warm_resolves"] == 0
         assert svc.recommend(sid).frontier_size >= 3
+
+    def test_promotion_during_init_installs_the_new_engines_state(
+            self, trained):
+        """The port runs a new session's init with the service lock
+        released.  A model promoted meanwhile (another thread's round
+        swaps the engine) must not let the old engine's state in: the
+        init runs again on the new engine, and a round that finds the
+        session initializing waits for it instead of skipping it."""
+        reg, w, svc, _sid, rng = trained
+        sid = svc.create_workload_session(reg, w)
+        sess = svc._sessions[sid]
+        old_engine = sess.engine
+        in_init, release = threading.Event(), threading.Event()
+        built = {}
+        old_init = old_engine.initialize
+
+        def held_init():
+            in_init.set()
+            assert release.wait(timeout=60.0)
+            built["old"] = old_init()
+            return built["old"]
+
+        old_engine.initialize = held_init
+        got = {}
+        stepper = threading.Thread(
+            target=lambda: got.update(a=svc.step_sessions([sid])),
+            daemon=True)
+        stepper.start()
+        try:
+            assert in_init.wait(timeout=60.0)
+            for _ in range(5):
+                feed(reg, w, 8, rng, shift=True)
+            assert svc.session_info(sid).stale
+            rep = reg.retrain(w)
+            assert rep.improved and rep.version == 2
+            other = threading.Thread(
+                target=lambda: got.update(b=svc.step_sessions([sid])),
+                daemon=True)
+            other.start()
+            for _ in range(6000):  # the other round's refresh swaps it
+                if sess.engine is not old_engine:
+                    break
+                other.join(timeout=0.01)
+            new_engine = sess.engine
+            assert new_engine is not old_engine
+            assert sess.state is None and not sess.stale
+            new_init = new_engine.initialize
+
+            def recorded_init():
+                built["new"] = new_init()
+                return built["new"]
+
+            new_engine.initialize = recorded_init
+        finally:
+            release.set()
+        stepper.join(timeout=120.0)
+        other.join(timeout=120.0)
+        assert not stepper.is_alive() and not other.is_alive()
+        assert "old" in built and "new" in built
+        assert sess.engine is new_engine and not sess.stale
+        assert sess.state is built["new"]
+        assert sess.state is not built["old"]
+        assert got["a"]["per_session"].get(sid, 0) > 0
+        # the other round waited for the init instead of skipping the
+        # session: it probed it, or found its queue drained
+        assert (sid in got["b"]["per_session"]
+                or sid in got["b"]["exhausted"])
 
     def test_registry_on_another_device_is_refused(self, trained):
         reg, _w, _svc, _sid, _rng = trained
