@@ -28,6 +28,29 @@ Phases (any failure exits non-zero; nothing is caught and turned into 0):
    ``recommend`` for every tenant, ``recommend_dag`` for both jobs through
    the pairwise-compose kernel, then ``solve_dag`` on the 8-stage job at
    expt5's full size.
+5d. The paper's comparison (``benchmarks/expt1_batch2d.py``'s settings:
+   MOGD 100 steps x 8 starts, PF-AP 24 probes through the kernel path of
+   the frontier store, WS and NC 10 probes, NSGA-II 40 x 8 generations) on
+   the Spark task of phase 3, once untimed and once timed, then on the
+   same task with a cost cap at the median of PF-AP's costs, and on the
+   first ``batch_suite()`` workload as a closure task: per method the
+   frontier size, its HV against expt1's point, wall and first-frontier
+   seconds and its launches by kernel and route.  Every frontier must be
+   non-dominated, no capped method may return a point above the cap, NC
+   and PF-AP must launch the descend kernel, PF-AP the dominance kernel,
+   and no plain version may run on the card.  Then ZDT1: PF-AP (60
+   probes) must cover at least WS's frontier (10 probes), as
+   ``tests/test_progressive_frontier.py`` asserts.
+5e. The execution planner: ``plan_job`` (24 probes) at train_4k for
+   qwen3-4b, qwen2-moe-a2.7b and rwkv6-3b (all ten configurations took
+   92 s) and for qwen3-4b and jamba-v0.1-52b at decode_32k, then a cost-capped plan (the cap at the
+   median cost of qwen3-4b's free one), ``replan_elastic`` to 200 chips, an incremental plan from
+   the free one's state, ``plan_dag`` on expt5's 8-stage job through the
+   dominance and compose kernels (its composed frontier equal to the
+   host's composition) and the registry's ``ingest_dryrun`` of two
+   artifacts written to a temporary directory.  Every recommendation must
+   decode to a valid plan, the capped frontier must honor its cap and the
+   elastic plan fit in 200 chips.
 5b. The front desk: a ``FrontDesk`` with its dispatcher thread over a
    kernel-path ``MOOService`` with a ``FrontierVault`` (in a temporary
    directory), one ticket of 16 probes for each of the 258 tenants, the
@@ -111,7 +134,8 @@ dominance, compose and store-``add`` timings that the whole run makes,
 into ``NAME.json`` beside ``chip_smoke.json``; copied into an earlier
 tree, it times that tree's kernels the same way.
 
-Standard output ends with the service, front-desk (latency by class,
+Standard output ends with the service, comparison, planner, front-desk
+(latency by class,
 shed counts, ``recommend`` while dispatching, launches, the plane), vault,
 model-server and LM-serving summary lines, the decode calls' host pieces,
 the kernels' JSON record (seven kernels; WKV and the scan with their
@@ -1388,6 +1412,340 @@ def phase_service(dev, rounds: int = 4) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phases 5d-5e: the paper's comparison and the execution planner
+# ---------------------------------------------------------------------------
+
+# benchmarks/expt1_batch2d.py's settings: MOGD (steps, multistart), PF-AP's
+# probes, WS's and NC's probes, NSGA-II's population and generations
+CMP_MOGD = (100, 8)
+CMP_PF_PROBES, CMP_GRID_PROBES = 24, 10
+CMP_POP, CMP_GENS = 40, 8
+# the first batch_suite() workload as a closure task: PF-AP and NC take
+# 11-12 and 4-5 s a workload there (the executor's eager scan path), so
+# three (65 s for the phase on the H100) were cut to one
+CMP_WORKLOADS = 1
+
+
+def _hv_ref(problem):
+    """expt1's HV reference point: the sampled bounds' upper edge plus
+    10 % of their span."""
+    from repro_torch.core import estimate_objective_bounds
+
+    b = estimate_objective_bounds(problem)
+    return b[1] + 0.1 * (b[1] - b[0])
+
+
+def _cap_slack(cap: float) -> float:
+    """The value-bound slack every method allows (``feasible_mask``'s 1e-6
+    of the bound's scale)."""
+    return 1e-6 * max(abs(cap), 1.0)
+
+
+def compare_methods(task, dev, label: str, capped: bool = False) -> dict:
+    """PF-AP, WS, NC and NSGA-II on one task at expt1's budgets: per method
+    the frontier size, HV against expt1's point, wall and first-frontier
+    seconds, and the launches of its own run, by kernel and by route.
+    Every frontier must be finite and mutually non-dominated, and not empty
+    unless the task is ``capped`` (a method may find no point under a
+    cap)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (
+        MOGDConfig,
+        ProgressiveFrontier,
+        as_problem,
+        hypervolume_2d,
+        normalized_constraints,
+        nsga2,
+        pareto_mask,
+        weighted_sum,
+    )
+    from repro_torch.kernels import platform
+
+    mogd = MOGDConfig(steps=CMP_MOGD[0], multistart=CMP_MOGD[1])
+    problem = as_problem(task)
+    ref = np.asarray(_hv_ref(problem))
+    runs = {
+        "pf_ap": lambda: ProgressiveFrontier(
+            task, mode="AP", mogd=mogd, use_kernel=True,
+            device=dev).run(n_probes=CMP_PF_PROBES),
+        "ws": lambda: weighted_sum(task, n_probes=CMP_GRID_PROBES, mogd=mogd,
+                                   device=dev),
+        "nc": lambda: normalized_constraints(task, n_probes=CMP_GRID_PROBES,
+                                             mogd=mogd, device=dev),
+        "nsga2": lambda: nsga2(task, n_probes=CMP_PF_PROBES,
+                               pop_size=CMP_POP, n_gens=CMP_GENS,
+                               device=dev),
+    }
+    out = {}
+    for name, run in runs.items():
+        platform.reset_launches()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        F = np.asarray(res.F)
+        if (not len(F) and not capped) or not np.all(np.isfinite(F)):
+            fail(f"{label} {name}: empty or non-finite frontier")
+        if not bool(pareto_mask(F).all()):
+            fail(f"{label} {name}: frontier points dominate each other")
+        out[name] = {"points": len(F), "hv": hypervolume_2d(F, ref),
+                     "seconds": wall,
+                     "first_frontier_s": (float(res.trace[0][0])
+                                          if res.trace else None),
+                     "probes": int(res.probes),
+                     "launches": platform.launch_counts(),
+                     "routes": platform.route_counts(),
+                     "plain_on_cuda": platform.plain_on_cuda_counts(),
+                     "F": F}
+    log(f"{label}: " + json.dumps({n: {k: v for k, v in r.items()
+                                       if k != "F"}
+                                   for n, r in out.items()}))
+    return out
+
+
+def phase_comparison(dev) -> dict:
+    """The paper's comparison on the Spark task and on the first
+    ``batch_suite()`` workloads, a cost-capped rerun of the Spark task, and
+    ZDT1's coverage assertion (tests/test_progressive_frontier.py's
+    ``test_pf_beats_ws_coverage_on_zdt1``)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.core import (
+        MOGDConfig,
+        Objective,
+        hypervolume_2d,
+        make_zdt1,
+        solve_pf,
+        weighted_sum,
+    )
+    from repro_torch.data.workloads import batch_problem, batch_suite
+
+    task = spark_task(0, dev)
+    # untimed warm-up of every method (expt1's amortized regime): first
+    # calls build the kernel library's plans and allocator pools
+    compare_methods(task, dev, "comparison warm-up")
+    spark = compare_methods(task, dev, "comparison spark")
+    for name in ("nc", "pf_ap"):
+        if spark[name]["launches"].get("descend_batch", 0) <= 0:
+            fail(f"comparison: {name} did not launch the descend kernel")
+    if spark["pf_ap"]["launches"].get("cross_dominator_counts", 0) <= 0:
+        fail("comparison: PF-AP did not launch the dominance kernel")
+    cap = float(np.median(spark["pf_ap"]["F"][:, 1]))
+    capped_task = dataclasses.replace(task, objectives=(
+        Objective("latency_s"), Objective("cost_usd", bound=(None, cap))))
+    capped = compare_methods(capped_task, dev, "comparison spark capped",
+                             capped=True)
+    for name, r in capped.items():
+        over = r["F"][:, 1] > cap + _cap_slack(cap)
+        if over.any():
+            fail(f"comparison: {name} returned {int(over.sum())} points "
+                 f"above the cost cap {cap}")
+    workloads = {}
+    for w in batch_suite()[:CMP_WORKLOADS]:
+        workloads[w.name] = compare_methods(batch_problem(w, device=dev),
+                                            dev, f"comparison {w.name}")
+    for label, runs in (("spark", spark), ("spark capped", capped),
+                        *workloads.items()):
+        for name, r in runs.items():
+            if r["plain_on_cuda"]:
+                fail(f"comparison {label} {name}: plain versions ran on the "
+                     f"card: {r['plain_on_cuda']}")
+    zdt1 = make_zdt1(device=dev)
+    cfg = MOGDConfig(steps=120, multistart=8)
+    t0 = time.perf_counter()
+    pf = solve_pf(zdt1, mode="AP", n_probes=60, mogd=cfg, device=dev)
+    ws = weighted_sum(zdt1, n_probes=10, mogd=cfg, device=dev)
+    zdt1_s = time.perf_counter() - t0
+    zref = np.array([1.5, 1.5])
+    z = {"pf_points": len(pf.F), "ws_points": len(ws.F),
+         "pf_hv": hypervolume_2d(pf.F, zref),
+         "ws_hv": hypervolume_2d(ws.F, zref), "seconds": zdt1_s}
+    log(f"comparison zdt1: {z}")
+    if not (z["pf_points"] >= z["ws_points"]
+            and z["pf_hv"] >= z["ws_hv"] - 0.05):
+        fail(f"zdt1: PF-AP does not cover at least WS's frontier: {z}")
+
+    def strip(runs):
+        return {n: {k: v for k, v in r.items() if k != "F"}
+                for n, r in runs.items()}
+
+    return {"spark": strip(spark), "spark_capped": strip(capped),
+            "cost_cap": cap,
+            "workloads": {n: strip(r) for n, r in workloads.items()},
+            "zdt1": z}
+
+
+# plan_job takes 6.8-10 s a cell on the H100 (the eager scan path over
+# the closure program), so the ten configurations at train_4k (139 s for
+# the phase) were cut to a dense, an MoE and an RWKV one; the hybrid
+# (Jamba) is planned at decode_32k
+PLAN_ARCHS = ("qwen3-4b", "qwen2-moe-a2.7b", "rwkv6-3b")
+PLAN_SHAPES = (("qwen3-4b", "decode_32k"), ("jamba-v0.1-52b", "decode_32k"))
+PLAN_ELASTIC_CHIPS = 200
+
+
+def _check_plan(rec, label: str, chips_max: int = 512) -> None:
+    """A recommendation is a plan: every frontier row decodes to the knob
+    space's values and the objectives are finite and positive."""
+    import numpy as np
+
+    from repro_torch.launch.plans import Plan
+
+    plans = [(rec.plan, rec.num_chips, rec.model_parallel),
+             *rec.frontier_plans]
+    if not len(rec.frontier_F) or len(rec.frontier_plans) != len(
+            rec.frontier_F):
+        fail(f"{label}: {len(rec.frontier_F)} frontier rows, "
+             f"{len(rec.frontier_plans)} plans")
+    if not (np.all(np.isfinite(rec.frontier_F))
+            and np.all(rec.frontier_F > 0)):
+        fail(f"{label}: non-finite or non-positive objectives")
+    for plan, chips, tp in plans:
+        if not (isinstance(plan, Plan) and chips in (64, 128, 256, 512)
+                and chips <= chips_max and tp in (1, 2, 4, 8, 16, 32)
+                and plan.remat in ("none", "dots", "full")
+                and plan.param_dtype in ("float32", "bfloat16")
+                and plan.state_dtype in ("float32", "bfloat16")
+                and plan.microbatches in (1, 2, 4, 8)
+                and plan.moe_impl in ("einsum", "gather")
+                and plan.attn_chunk in (512, 1024, 2048, 4096)):
+            fail(f"{label}: invalid plan {plan}, chips {chips}, tp {tp}")
+
+
+def _write_dryrun_artifacts(root) -> None:
+    """Two dry-run artifacts of one cell, as tests/test_modelserver.py's
+    ingest bridge test writes them."""
+    rec = {
+        "arch": "qwen3-4b", "shape": "train_4k", "mesh": "16x16",
+        "plan": {"fsdp": True, "remat": "dots", "param_dtype": "float32",
+                 "state_dtype": "float32", "microbatches": 1,
+                 "moe_impl": "einsum", "attn_chunk": 1024,
+                 "seq_shard_all": False, "pure_dp": False,
+                 "grad_reduce_dtype": "float32"},
+        "roofline": {"compute_s": 1.0, "memory_s": 2.0,
+                     "collective_s": 3.0},
+    }
+    (root / "qwen3-4b__train_4k__16x16.json").write_text(json.dumps(rec))
+    rec2 = dict(rec, roofline={"compute_s": 0.5, "memory_s": 1.0,
+                               "collective_s": 1.5})
+    rec2["plan"] = dict(rec["plan"], remat="none")
+    (root / "qwen3-4b__train_4k__16x16__opt.json").write_text(
+        json.dumps(rec2))
+
+
+def phase_planner(dev) -> dict:
+    """``plan_job`` for three configurations at train_4k and two decode
+    cells, a cost-capped plan, an elastic replan, an
+    incremental plan, ``plan_dag`` through the dominance and compose
+    kernels, and the registry's dry-run ingest."""
+    import tempfile
+    import types
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import platform
+    from repro_torch.modelserver import (
+        ModelRegistry,
+        TrainerConfig,
+        ingest_dryrun,
+    )
+    from repro_torch.planner import plan_dag, plan_job, replan_elastic
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        rec = fn()
+        torch.cuda.synchronize()
+        return rec, time.perf_counter() - t0
+
+    plans, recs = {}, {}
+    cells = [(a, "train_4k") for a in PLAN_ARCHS] + list(PLAN_SHAPES)
+    for arch, shape in cells:
+        rec, s = timed(lambda: plan_job(get_config(arch), shape,
+                                        n_probes=24, deadline_s=None,
+                                        device=dev))
+        _check_plan(rec, f"plan {arch} {shape}")
+        recs[arch, shape] = rec
+        plans[f"{arch}:{shape}"] = {
+            "seconds": s, "points": len(rec.frontier_F),
+            "num_chips": rec.num_chips, "model_parallel": rec.model_parallel,
+            "objectives": rec.objectives.tolist()}
+    log(f"planner plans: {plans}")
+    cfg = get_config("qwen3-4b")
+    free = recs["qwen3-4b", "train_4k"]
+    cap = float(np.median(free.frontier_F[:, 1]))
+    capped, capped_s = timed(lambda: plan_job(
+        cfg, "train_4k", n_probes=24, deadline_s=None,
+        objective_bounds={"cost": (None, cap)}, device=dev))
+    _check_plan(capped, "capped plan")
+    if np.any(capped.frontier_F[:, 1] > cap + _cap_slack(cap)):
+        fail(f"capped plan: a frontier cost above the cap {cap}")
+    elastic, elastic_s = timed(lambda: replan_elastic(
+        cfg, "train_4k", surviving_chips=PLAN_ELASTIC_CHIPS,
+        deadline_s=None, device=dev))
+    _check_plan(elastic, "elastic plan", chips_max=PLAN_ELASTIC_CHIPS)
+    # a short plan whose queue still holds rectangles, resumed for 16 more
+    # probes
+    first = plan_job(cfg, "train_4k", n_probes=8, deadline_s=None,
+                     device=dev)
+    before, left = first.pf_state.probes, len(first.pf_state.queue)
+    more, more_s = timed(lambda: plan_job(cfg, "train_4k", n_probes=16,
+                                          deadline_s=None,
+                                          state=first.pf_state, device=dev))
+    _check_plan(more, "incremental plan")
+    if left and more.pf_state.probes <= before:
+        fail("incremental plan: no probe added to the resumed state")
+    if len(more.frontier_F) < len(first.frontier_F) - 2:
+        fail(f"incremental plan: the frontier shrank from "
+             f"{len(first.frontier_F)} to {len(more.frontier_F)} points")
+    job = expt5_job(8, 8, dev)
+    platform.reset_launches()
+    dag, dag_s = timed(lambda: plan_dag(job, use_kernel=True, device=dev))
+    dag_launches = platform.launch_counts()
+    dag_plain = platform.plain_on_cuda_counts()
+    for name in ("pairwise_compose", "cross_dominator_counts"):
+        if dag_launches.get(name, 0) <= 0:
+            fail(f"plan_dag: kernel {name} was not launched")
+    if dag_plain:
+        fail(f"plan_dag: plain versions ran on the card: {dag_plain}")
+    check_composed(job, types.SimpleNamespace(F=dag.frontier_F,
+                                              X=dag.frontier_X),
+                   dag.stage_frontiers, "plan_dag job8")
+    if set(dag.stage_configs) != set(job.stage_names):
+        fail("plan_dag: the pick does not configure every stage")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as root:
+        root = Path(root)
+        _write_dryrun_artifacts(root)
+        reg = ModelRegistry(trainer=TrainerConfig(hidden=(24, 24),
+                                                  max_epochs=30, seed=0),
+                            device=dev)
+        sig, n = ingest_dryrun(reg, "qwen3-4b", "train_4k", root=root)
+        sig2, n2 = ingest_dryrun(reg, "qwen3-4b", "train_4k", root=root)
+        traces = reg.info(sig)["traces"]
+    if (n, n2, sig2, traces) != (2, 2, sig, 4):
+        fail(f"ingest_dryrun: rows {n}, {n2}, traces {traces}")
+    out = {"plans": plans, "cost_cap": cap,
+           "capped": {"seconds": capped_s,
+                      "points": len(capped.frontier_F)},
+           "elastic": {"seconds": elastic_s, "num_chips": elastic.num_chips,
+                       "points": len(elastic.frontier_F)},
+           "incremental": {"seconds": more_s,
+                           "points": len(more.frontier_F),
+                           "probes": [before, more.pf_state.probes]},
+           "plan_dag": {"seconds": dag_s, "points": len(dag.frontier_F),
+                        "probes": dag.probes, "launches": dag_launches,
+                        "routes": platform.route_counts()},
+           "ingest": {"rows": n + n2, "traces": traces}}
+    log(f"planner: {out}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phases 5b-5c: the front desk and the vault
 # ---------------------------------------------------------------------------
 
@@ -2604,6 +2962,12 @@ def main() -> int:
     log(f"compose timing path shape: {c_main}")
     log(f"compose timing 4096x4096: {c_big}")
     mark("service")
+    # phase 5d: the paper's comparison (launches counted per method inside)
+    comparison = phase_comparison(dev)
+    mark("comparison")
+    # phase 5e: the execution planner (plan_dag's launches counted inside)
+    planner = phase_planner(dev)
+    mark("planner")
     # phase 5b: the front desk over a kernel-path service with a vault
     # (counted separately; read after its dispatcher thread stops)
     import tempfile
@@ -2793,6 +3157,7 @@ def main() -> int:
                "modelserver": {k: v for k, v in ms.items()
                                if k not in ("stats", "executor")},
                "modelserver_stats": ms["stats"],
+               "comparison": comparison, "planner": planner,
                "frontdesk": desk, "vault": vault,
                "launches": {"single_task": launches,
                             "tenants": tenant_launches,
@@ -2820,6 +3185,22 @@ def main() -> int:
         "solve_dag_s": service["solve_dag"]["seconds"],
         "solve_dag_dispatches": service["solve_dag"]["dispatches"]}}),
         flush=True)
+    print(json.dumps({"comparison": {
+        label: {n: {k: r[k] for k in ("points", "hv", "seconds",
+                                      "first_frontier_s", "launches",
+                                      "routes")}
+                for n, r in runs.items()}
+        for label, runs in (("spark", comparison["spark"]),
+                            ("spark_capped", comparison["spark_capped"]))}
+        | {"cost_cap": comparison["cost_cap"],
+           "workloads_hv": {w: {n: r["hv"] for n, r in runs.items()}
+                            for w, runs in comparison["workloads"].items()},
+           "zdt1": comparison["zdt1"]}}), flush=True)
+    print(json.dumps({"planner": {
+        "plans": {c: [p["seconds"], p["points"]]
+                  for c, p in planner["plans"].items()},
+        **{k: planner[k] for k in ("capped", "elastic", "incremental",
+                                   "plan_dag", "ingest")}}}), flush=True)
     print(json.dumps({"frontdesk_latency_s": {
         n: {k: c[k] for k in ("admit_s", "queue_wait_s", "dispatch_s",
                               "e2e_s")}

@@ -8,6 +8,7 @@ Public API::
         MOOProblem, continuous, integer, categorical, boolean,
         MOGDConfig, MOGDSolver,
         ProgressiveFrontier, solve_pf,
+        weighted_sum, normalized_constraints, nsga2,  # the paper's baselines
         JobDAG, StageSpec, StageFamily, solve_dag,  # multi-stage jobs
         utopia_nearest, weighted_utopia_nearest,
         pareto_mask, pareto_filter, hypervolume,
@@ -69,6 +70,13 @@ from .progressive_frontier import (
     live_seed_points,
     solve_pf,
 )
+from .baselines import (
+    BaselineResult,
+    normalized_constraints,
+    nsga2,
+    weight_lattice,
+    weighted_sum,
+)
 from .dag import (
     ComposedFrontier,
     DAGResult,
@@ -110,7 +118,7 @@ from .task import (
 )
 
 __all__ = [
-    "COResult", "ComposedFrontier", "DAGResult", "FamilySolver",
+    "BaselineResult", "COResult", "ComposedFrontier", "DAGResult", "FamilySolver",
     "FrontierStore", "JobDAG", "MOGDConfig", "MOGDSolver", "MOOProblem",
     "Objective", "PFResult", "PFState", "PopInfo", "Preference",
     "ProgressiveFrontier", "Rectangle", "RectangleQueue", "SpaceEncoder",
@@ -124,10 +132,12 @@ __all__ = [
     "hypervolume", "hypervolume_2d", "import_pf_state", "integer",
     "live_seed_points", "make_analytics_family", "make_dtlz2",
     "make_mixed_problem", "make_rectangle", "make_sphere2", "make_zdt1",
-    "mlp_surrogate_task", "pareto_filter", "pareto_filter_masked",
+    "mlp_surrogate_task", "normalized_constraints", "nsga2",
+    "pareto_filter", "pareto_filter_masked",
     "pareto_mask", "preference_from_legacy",
     "random_series_parallel_edges", "select", "single_objective_box",
     "solve_dag", "solve_grouped", "solve_pf", "sphere2_task",
-    "split_rectangle", "utopia_nearest", "weighted_single_objective_pick",
+    "split_rectangle", "utopia_nearest", "weight_lattice",
+    "weighted_single_objective_pick", "weighted_sum",
     "weighted_utopia_nearest", "workload_aware_wun", "zdt1_task",
 ]

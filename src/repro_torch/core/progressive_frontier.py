@@ -216,6 +216,28 @@ def live_seed_points(arrays: dict) -> np.ndarray:
     return np.asarray(arrays["store/X"], dtype=np.float64)[alive]
 
 
+def _overlay_bounds(est: np.ndarray, user: np.ndarray) -> np.ndarray:
+    """The sampled objective box ``est (2, k)`` with the user's finite
+    value bounds ``user (2, k)`` in place of its edges.
+
+    Where a cap lies past the sampled box's other edge (a sampled lower
+    edge above a declared upper bound, or the reverse), the overlay alone
+    would invert that axis and leave every probe infeasible: the sampled
+    edge then moves to 5 % of the sampled span beyond the cap.  The
+    reference overlays without this guard, and inverts the f2 axis of
+    ``zdt1_task(f2_cap=0.6)`` for a sample whose f2 minimum is above the
+    cap."""
+    out = np.where(np.isfinite(user), user, est)
+    margin = 0.05 * np.maximum(est[1] - est[0], 1e-12)
+    lo, hi = out[0].copy(), out[1].copy()
+    inverted = lo >= hi
+    cap_hi = inverted & np.isfinite(user[1]) & ~np.isfinite(user[0])
+    cap_lo = inverted & np.isfinite(user[0]) & ~np.isfinite(user[1])
+    lo = np.where(cap_hi, hi - margin, lo)
+    hi = np.where(cap_lo, lo + margin, hi)
+    return np.stack([lo, hi])
+
+
 @dataclasses.dataclass
 class PFResult:
     """Frontier, bounds, telemetry and the resume handle of one run."""
@@ -304,7 +326,7 @@ class ProgressiveFrontier:
                 # the initial objective box — and hence every probe —
                 # honors the caps.
                 user = np.asarray(vc, dtype=np.float64).reshape(self._k, 2).T
-                bounds = np.where(np.isfinite(user), user, bounds)
+                bounds = _overlay_bounds(bounds, user)
         refs, xs = [], []
         for i in range(self._k):
             r = (

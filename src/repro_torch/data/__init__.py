@@ -1,6 +1,8 @@
-"""Synthetic analytics workload families and trace generation for the
-modeling engine (paper §6)."""
+"""Data pipeline: synthetic workload families + trace generation for the
+modeling engine (paper §6), and dry-run trace harvesting for the
+execution planner."""
 
+from .harvest import harvest, harvest_all
 from .workloads import (
     BatchWorkload,
     StreamingWorkload,
@@ -27,6 +29,8 @@ __all__ = [
     "batch_task",
     "default_config",
     "generate_traces",
+    "harvest",
+    "harvest_all",
     "spark_space",
     "streaming_metrics",
     "streaming_problem",

@@ -6,12 +6,12 @@ invalidation events that the MOO service turns into warm frontier
 re-solves.  The optimizer only ever consumes frozen snapshots — the
 paper's decoupled modeling engine, online.
 
-The reference's dry-run ingest bridge (``ingest_dryrun``) comes with the
-planner and trace harvest; the registry's vault with the persistence
-plane.
+``ingest_dryrun`` feeds harvested dry-run traces (``data/harvest.py``)
+into the registry over the planner's knob space.
 """
 
 from .drift import DriftConfig, DriftDetector
+from .ingest import DRYRUN_OBJECTIVES, ingest_dryrun
 from .registry import (
     ModelEvent,
     ModelRegistry,
@@ -29,6 +29,7 @@ from .trainer import (
 )
 
 __all__ = [
+    "DRYRUN_OBJECTIVES",
     "DriftConfig",
     "DriftDetector",
     "ModelEvent",
@@ -38,6 +39,7 @@ __all__ = [
     "TrainOutcome",
     "TrainerConfig",
     "WorkloadRecord",
+    "ingest_dryrun",
     "nearest_embedding",
     "trace_embedding",
     "train_candidate",
