@@ -107,6 +107,30 @@ Phases (any failure exits non-zero; nothing is caught and turned into 0):
    and the scan, every decode step) the engine made, every flash launch
    of those bf16 prefills on the tensor-core route, and no plain WKV,
    attention or scan may have run on a CUDA tensor, forward or backward.
+7b. LM training: ``qwen3-4b``, ``rwkv6-3b`` and ``jamba-v0.1-52b`` at full
+   width (depth cut by ``TRAIN_CUTS`` to fit one card with Adam; Jamba
+   without its experts), weights from seed 0, bf16 compute with fp32
+   parameters and Adam moments: ``TRAIN_STEPS`` steps of
+   ``make_train_step`` on one MarkovCorpus batch of B x S tokens drawn
+   through the ``TokenLoader``, each model freed before the next.  The
+   first step's loss and gradient norm must agree with the same step's
+   with the kernels forced to their plain versions (``TRAIN_PLAIN_TOL``);
+   every loss must be finite and the last below the first; counted over
+   the steps alone, each kernel launches once per mixer layer and step, its plain version
+   never runs forward on the card and recomputes once per mixer layer and
+   step in the backward (``PLAIN_BACKWARD_ON_CUDA``: the recompute is the
+   backward by design), and every flash launch takes the tensor-core
+   route.  Step ms (median of steps 3-6), tokens/s, peak memory and the
+   forward / backward / Adam split of a step (CUDA events from the train
+   step's ``_mark`` instrumentation hook).  Then ``launch.train.main`` at each mixer kind's
+   smoke config: ``DRIVER_STEPS[0]`` steps with checkpoints, an
+   ``ElasticController`` handling a node loss (the planner's
+   ``replan_elastic`` at train_4k from 256 chips, the step rebuilt, the
+   checkpoint restored onto the card and held to the saved state bit for
+   bit), then a second ``main`` that resumes to ``DRIVER_STEPS[1]``: the
+   resumed run's losses finite and as many as its steps, the mean of the
+   last 10 losses ``DRIVER_MARGIN`` below the first 10's, and the
+   launches as above in both runs.
 8. Assertions: fused dispatches, no fallbacks, every kernel launched on its
    path, every descend launch of phases 3-5 on the resident route, no JAX
    or ``repro`` module loaded, everything on ``cuda``.
@@ -138,6 +162,7 @@ Standard output ends with the service, comparison, planner, front-desk
 (latency by class,
 shed counts, ``recommend`` while dispatching, launches, the plane), vault,
 model-server and LM-serving summary lines, the decode calls' host pieces,
+the LM training line (with the card's name and power limit),
 the kernels' JSON record (seven kernels; WKV and the scan with their
 decode call's times beside the prefill's, the scan's bound counting its
 exps on the SFUs) and the device JSON line.  Without a CUDA device, or outside the repository, the
@@ -223,6 +248,46 @@ LM_CHECK_LEN = 16
 LM_FP32_TOL = 1e-3
 # the bf16 dense tensor-core peak of one H100 SXM (NVIDIA data sheet)
 PEAK_BF16_S = 989e12
+# the LM training phase: one model of each mixer kind at full width, bf16
+# compute, fp32 parameters and Adam moments, B x S MarkovCorpus tokens a
+# step.  Depth is cut to fit one card with Adam (16 bytes a parameter plus
+# the bf16 cast copy and its gradient): qwen3-4b and rwkv6-3b at 8 layers,
+# Jamba at one period of its plan with the dense FFN in the MoE layers'
+# place (one MoE layer alone is 2.82 B parameters; the MoE has no kernel)
+TRAIN_CUTS = {"qwen3-4b": {"n_layers": 8}, "rwkv6-3b": {"n_layers": 8},
+              "jamba-v0.1-52b": {"n_layers": 8, "moe": None}}
+# The steps train on one batch, drawn once through the TokenLoader: on
+# fresh batches 6 steps of 2,048 tokens leave the loss flat against the
+# batch-to-batch spread (on an H100: 12.433 -> 12.399 qwen3-4b,
+# 11.563 -> 11.606 rwkv6-3b, 11.575 -> 11.546 Jamba), while one batch
+# repeated shows that each step learns (12.43 -> 5.25, 11.56 -> 0.03,
+# 11.57 -> 0.19); the driver below trains on fresh batches
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 4, 512, 6, 3e-4
+TRAIN_TIMED = slice(2, 6)  # steps 3-6: the median step and the shares
+# the first step's loss and gradient norm against the same step with the
+# kernels forced to their plain versions, relative: bf16 compute (flash's
+# bf16 tolerance above, tests/test_archs.py's 2e-2)
+TRAIN_PLAIN_TOL = 2e-2
+# the driver at the smoke config of each of those archs: 100 steps with a
+# checkpoint every 50, a node loss handled by the elastic controller, then
+# a resume to step 200; the mean of the last 10 losses must sit this far
+# below the first 10's (on a CPU the same runs descend by 2.84, 2.62 and
+# 2.80 nats: qwen3-4b, rwkv6-3b, Jamba).  512 tokens a step as 16 x 32:
+# the recompute backward's eager loop runs over the sequence, and at 8 x
+# 64 Jamba's 200 steps took 104 s of the phase's 214 on an H100 host
+DRIVER_ARGS = ("--smoke", "--batch", "16", "--seq", "32", "--ckpt-every",
+               "50", "--log-every", "50")
+DRIVER_STEPS = (100, 200)
+# the kernels' shapes on the driver's path (16 x 32 tokens at the smoke
+# configs: qwen3-4b's and Jamba's 4/2 heads of 16, rwkv6-3b's 4 WKV heads
+# of 16, Jamba's Mamba d_inner 128 with 4 states), held to their plain
+# versions in phase 7
+TRAIN_SMOKE_SHAPES = {
+    "flash_attention": {"B": 16, "S": 32, "H": 4, "Hk": 2, "dh": 16},
+    "rwkv6_wkv": {"B": 16, "T": 32, "H": 4, "dh": 16},
+    "mamba_scan": {"B": 16, "T": 32, "d": 128, "n": 4}}
+DRIVER_MARGIN = 1.5
+ELASTIC_CHIPS = 256
 
 
 def log(*args) -> None:
@@ -2305,14 +2370,14 @@ def _wkv_inputs(dev, B: int, T: int, H: int, dh: int, seed: int,
 
 
 def _attn_inputs(dev, S: int, dtype, seed: int, H=LM_HEADS, Hk=LM_KV_HEADS,
-                 dh=LM_HEAD_DIM):
+                 dh=LM_HEAD_DIM, B=1):
     import numpy as np
     import torch
 
     rng = np.random.default_rng(seed)
     t = lambda *sh: torch.tensor(rng.normal(size=sh), dtype=torch.float32,  # noqa: E731
                                  device=dev).to(dtype)
-    return t(1, S, H, dh), t(1, S, Hk, dh), t(1, S, Hk, dh)
+    return t(B, S, H, dh), t(B, S, Hk, dh), t(B, S, Hk, dh)
 
 
 def _scan_inputs(dev, T: int, seed: int, state: bool, d=LM_SCAN_D,
@@ -2343,7 +2408,10 @@ def phase_lm_kernels(dev) -> dict:
     mamba_scan at Jamba's d_inner 8192 and 16 states (a 512-token prefill
     from zero and from a nonzero state, at B = 1 and from zero at B = 4,
     the two lane layouts of the kernel; a decode step and an odd 37-step
-    run from a state; y and the final state at 3e-4)."""
+    run from a state; y and the final state at 3e-4).  Then the training
+    phase's shapes: flash at B = 4, S = 512 (the full-width steps) and all
+    three kernels at the driver's smoke shapes (``TRAIN_SMOKE_SHAPES``),
+    each from zero, at the same tolerances."""
     import torch
 
     from repro_torch.kernels import ref
@@ -2363,17 +2431,28 @@ def phase_lm_kernels(dev) -> dict:
         label = f"rwkv6_wkv B={B} T={T}"
         wkv_err = max(wkv_err, _close(y, want_y, LM_WKV_TOL, f"{label} y"),
                       _close(S, want_S, LM_WKV_TOL, f"{label} S"))
+    sm = TRAIN_SMOKE_SHAPES["rwkv6_wkv"]
+    args = _wkv_inputs(dev, sm["B"], sm["T"], sm["H"], sm["dh"], 7, False)
+    y, S = rwkv6_wkv_cuda(*args)
+    want_y, want_S = ref.rwkv6_wkv(*args)
+    wkv_err = max(wkv_err,
+                  _close(y, want_y, LM_WKV_TOL, f"rwkv6_wkv smoke {sm} y"),
+                  _close(S, want_S, LM_WKV_TOL, f"rwkv6_wkv smoke {sm} S"))
     flash_err = {}
     for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 2e-3)):
         worst = 0.0
-        for S in LM_FLASH_S:
-            q, k, v = _attn_inputs(dev, S, dtype, S)
+        smoke = TRAIN_SMOKE_SHAPES["flash_attention"]
+        cases = [(S, {}) for S in LM_FLASH_S] + [
+            (TRAIN_S, {"B": TRAIN_B}),
+            (smoke["S"], {k: smoke[k] for k in ("B", "H", "Hk", "dh")})]
+        for S, shape in cases:
+            q, k, v = _attn_inputs(dev, S, dtype, S, **shape)
             got = flash_attention_cuda(q, k, v)
             if got.dtype != dtype:
                 fail(f"flash_attention returned {got.dtype} for {dtype}")
             worst = max(worst, _close(
                 got.float(), flash_attention_plain(q, k, v).float(), tol,
-                f"flash_attention S={S} {dtype}"))
+                f"flash_attention S={S} {shape} {dtype}"))
         flash_err[str(dtype).split(".")[-1]] = worst
     q, k, v = _attn_inputs(dev, 512, torch.float32, 1)
     flash_err["non_causal_float32"] = _close(
@@ -2390,6 +2469,15 @@ def phase_lm_kernels(dev) -> dict:
         scan_err = max(scan_err,
                        _close(y, want_y, LM_SCAN_TOL, f"{label} y"),
                        _close(h, want_h, LM_SCAN_TOL, f"{label} h_fin"))
+    sm = TRAIN_SMOKE_SHAPES["mamba_scan"]
+    args = _scan_inputs(dev, sm["T"], 7, False, d=sm["d"], n=sm["n"],
+                        B=sm["B"])
+    y, h = mamba_scan_cuda(*args)
+    want_y, want_h = ref.mamba_scan(*args)
+    scan_err = max(scan_err,
+                   _close(y, want_y, LM_SCAN_TOL, f"mamba_scan smoke {sm} y"),
+                   _close(h, want_h, LM_SCAN_TOL,
+                          f"mamba_scan smoke {sm} h_fin"))
     log(f"lm kernels: rwkv6_wkv max |d| {wkv_err:.3e}; flash_attention "
         f"{flash_err}; mamba_scan {scan_err:.3e}")
     return {"wkv_err": wkv_err, "flash_err": flash_err, "scan_err": scan_err}
@@ -2885,6 +2973,285 @@ def phase_lm(dev) -> dict:
             "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# Phase 7b: LM training
+# ---------------------------------------------------------------------------
+
+
+def _train_counts(platform, cfg, steps: int, label: str) -> dict:
+    """The launch counts since the last reset, held to a train step's: per
+    step, each mixer layer launches its kernel once in the forward and
+    recomputes through its plain version once in the backward; no plain
+    forward on the card, and every flash launch of a bf16 model on the
+    tensor-core route."""
+    import torch
+
+    launches = platform.launch_counts()
+    plain = platform.plain_on_cuda_counts()
+    back = platform.plain_backward_on_cuda_counts()
+    routes = platform.route_counts()
+    want = {name: _mixer_layers(cfg, kind) * steps
+            for name, kind in (("rwkv6_wkv", "rwkv"),
+                               ("flash_attention", "attn"),
+                               ("mamba_scan", "mamba"))}
+    for name, n in want.items():
+        if launches.get(name, 0) != n:
+            fail(f"{label}: {name} launched {launches.get(name, 0)} times, "
+                 f"want {n} ({steps} steps)")
+        if back.get(name, 0) != n:
+            fail(f"{label}: {name} recomputed {back.get(name, 0)} times in "
+                 f"the backward, want {n}")
+        if plain.get(name, 0):
+            fail(f"{label}: the plain {name} ran {plain[name]} times on a "
+                 f"CUDA tensor in the forward")
+    if cfg.cdtype() == torch.bfloat16 and routes.get(
+            "flash_attention:wgmma", 0) != want["flash_attention"]:
+        fail(f"{label}: flash launches by route {routes}, want all on wgmma")
+    return {"launches": launches, "plain_backward": back, "routes": routes}
+
+
+def plain_first_step(cfg, params, batch, arch: str) -> dict:
+    """The first train step's loss and gradient norm with the forward
+    kernels forced to their plain versions on the card (the same
+    ``grads_of`` and ``global_norm`` as ``make_train_step``; no Adam state
+    is needed for them, so none is allocated beside the parameters).  The
+    counts show that nothing launched and that each mixer layer ran its
+    plain forward and its recompute once."""
+    from repro_torch.kernels import flash_attention, mamba_scan, platform
+    from repro_torch.kernels import rwkv6_wkv
+    from repro_torch.nn import attention
+    from repro_torch.training.adam import global_norm
+    from repro_torch.training.train_step import grads_of
+
+    platform.reset_launches()
+    with contextlib.ExitStack() as stack:
+        for module in (flash_attention, rwkv6_wkv, mamba_scan, attention):
+            stack.enter_context(forced(module, "use_kernel", False))
+        grads, metrics = grads_of(params, cfg, batch)
+        out = {"loss": float(metrics["loss"]),
+               "grad_norm": float(global_norm(grads))}
+    del grads
+    launches = platform.launch_counts()
+    plain = platform.plain_on_cuda_counts()
+    back = platform.plain_backward_on_cuda_counts()
+    for name, kind in (("rwkv6_wkv", "rwkv"), ("flash_attention", "attn"),
+                       ("mamba_scan", "mamba")):
+        n = _mixer_layers(cfg, kind)
+        if (launches.get(name, 0), plain.get(name, 0),
+                back.get(name, 0)) != (0, n, n):
+            fail(f"{arch} plain step: {name} launched "
+                 f"{launches.get(name, 0)}, plain {plain.get(name, 0)}, "
+                 f"recomputed {back.get(name, 0)} (want 0, {n}, {n})")
+    platform.reset_launches()
+    return out
+
+
+def train_full(dev, arch: str) -> dict:
+    """One model at full width, depth cut by ``TRAIN_CUTS``, weights from
+    seed 0: ``TRAIN_STEPS`` steps of ``make_train_step`` (bf16 compute,
+    fp32 parameters and moments) on one MarkovCorpus batch drawn through
+    the ``TokenLoader``, its first step held to ``plain_first_step``'s.
+    CUDA events from the step's ``_mark`` hook split each step into
+    forward, backward and Adam update; the launch counts are those of the
+    steps alone."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm_data import MarkovCorpus, TokenLoader
+    from repro_torch.kernels import platform
+    from repro_torch.training import (
+        AdamConfig,
+        TrainStepConfig,
+        adam_init,
+        make_train_step,
+    )
+
+    cfg = get_config(arch).replace(**TRAIN_CUTS[arch])
+    torch.cuda.reset_peak_memory_stats(dev)
+    params, n_params, init_s = _instance(dev, cfg)
+    loader = TokenLoader(MarkovCorpus(cfg.vocab, seed=0), TRAIN_B, TRAIN_S,
+                         device=dev, seed=1)
+    batch = next(loader)  # one batch, every step (TRAIN_STEPS' note)
+    loader.close()
+    plain = plain_first_step(cfg, params, batch, arch)
+    adam = AdamConfig(lr=TRAIN_LR)
+    opt = adam_init(params, adam)
+    marks: list[dict] = []
+
+    def mark(label: str) -> None:
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks[-1][label] = ev
+
+    step = make_train_step(cfg, TrainStepConfig(adam=adam), _mark=mark)
+    losses, walls, norms = [], [], []
+    platform.reset_launches()
+    for _ in range(TRAIN_STEPS):
+        _sync(dev)
+        t0 = time.perf_counter()
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        marks.append({"start": start})
+        params, opt, metrics = step(params, opt, batch)
+        losses.append(float(metrics["loss"]))  # syncs
+        walls.append(time.perf_counter() - t0)
+        norms.append(float(metrics["grad_norm"]))
+    counts = _train_counts(platform, cfg, TRAIN_STEPS, f"{arch} training")
+    first = {"loss": losses[0], "grad_norm": norms[0]}
+    plain_err = {k: abs(first[k] - plain[k]) / abs(plain[k]) for k in plain}
+    if not all(e <= TRAIN_PLAIN_TOL for e in plain_err.values()):
+        fail(f"{arch} training: the first step {first}, with the plain "
+             f"versions {plain} (relative {plain_err}, want <= "
+             f"{TRAIN_PLAIN_TOL})")
+    if not all(math.isfinite(v) for v in losses) or losses[-1] >= losses[0]:
+        fail(f"{arch} training: losses {losses}")
+    parts = {"forward": [], "backward": [], "update": []}
+    for m in marks[TRAIN_TIMED]:
+        prev = m["start"]
+        for name in ("forward", "backward", "update"):
+            parts[name].append(prev.elapsed_time(m[name]))
+            prev = m[name]
+    step_ms = float(np.median(walls[TRAIN_TIMED])) * 1e3
+    device_ms = {k: float(np.median(v)) for k, v in parts.items()}
+    out = {"layers": cfg.n_layers, "params_b": n_params / 1e9,
+           "init_s": init_s, "losses": losses,
+           "step_ms": step_ms, "step_ms_all": [w * 1e3 for w in walls],
+           "tokens_per_s": TRAIN_B * TRAIN_S / (step_ms / 1e3),
+           "device_ms": device_ms,
+           "backward_share": device_ms["backward"] / sum(device_ms.values()),
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "grad_norms": norms, "plain_first": plain,
+           "plain_rel_err": plain_err, **counts}
+    log(f"{arch} training: {out}")
+    del params, opt, metrics, step, batch
+    _free()
+    return out
+
+
+def _same_state(got, want, label: str, path: str = "") -> None:
+    """``got`` equal to ``want`` bit for bit: the same keys, and each leaf
+    of the same dtype, device and shape with equal contents."""
+    import torch
+
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            fail(f"{label}: {path or 'the state'} holds other keys")
+        for k in want:
+            _same_state(got[k], want[k], label, f"{path}/{k}")
+    elif isinstance(want, (list, tuple)):
+        if len(got) != len(want):
+            fail(f"{label}: {path} holds {len(got)} items, not {len(want)}")
+        for i, (g, w) in enumerate(zip(got, want)):
+            _same_state(g, w, label, f"{path}/{i}")
+    elif (got.dtype != want.dtype or got.device != want.device
+          or got.shape != want.shape or not torch.equal(got, want)):
+        fail(f"{label}: {path} differs from the saved leaf")
+
+
+def train_driver(dev, arch: str, root) -> dict:
+    """``launch.train.main`` at ``arch``'s smoke config on the card for
+    ``DRIVER_STEPS[0]`` steps with checkpoints; an ``ElasticController``
+    handles a node loss (the planner's ``replan_elastic`` for the full
+    config at train_4k, the step rebuilt, the checkpoint restored onto the
+    card and held to the saved state bit for bit); then a second ``main``
+    resumes to ``DRIVER_STEPS[1]``.  Launch counts per run."""
+    import numpy as np
+
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.kernels import platform
+    from repro_torch.launch import train
+    from repro_torch.planner import replan_elastic
+    from repro_torch.runtime import (
+        CheckpointManager,
+        ElasticController,
+        FailureEvent,
+    )
+    from repro_torch.training import AdamConfig, TrainStepConfig
+    from repro_torch.training import make_train_step
+
+    cfg = get_smoke(arch)
+    ckpt = root / arch
+    args = ["--arch", arch, *DRIVER_ARGS, "--device", "cuda", "--ckpt",
+            str(ckpt)]
+    platform.reset_launches()
+    with contextlib.redirect_stdout(sys.stderr):  # stdout ends in results
+        r1 = train.main(args + ["--steps", str(DRIVER_STEPS[0])])
+    _sync(dev)
+    c1 = _train_counts(platform, cfg, DRIVER_STEPS[0], f"{arch} driver")
+    saved = r1.pop("state")
+
+    def replan(chips):
+        t0 = time.perf_counter()
+        rec = replan_elastic(get_config(arch), "train_4k", chips, device=dev)
+        replan_s.append(time.perf_counter() - t0)
+        return rec
+
+    def rebuild(rec):
+        return make_train_step(cfg, TrainStepConfig(
+            adam=AdamConfig(lr=1e-3))), dev
+
+    def restore(device):
+        state, manifest = train.restore_train_state(
+            CheckpointManager(ckpt), saved)
+        restored_step.append(manifest["step"])
+        return state
+
+    replan_s, restored_step = [], []
+    ctl = ElasticController(total_chips=ELASTIC_CHIPS, replan=replan,
+                            rebuild=rebuild, restore=restore)
+    _, state = ctl.handle(FailureEvent(DRIVER_STEPS[0], "node_loss", -8))
+    if restored_step != [DRIVER_STEPS[0]]:
+        fail(f"{arch} driver: restored step {restored_step}")
+    _same_state(state, saved, f"{arch} elastic restore")
+    rec_chips = ctl.log[-1]["replan_chips"]
+    if not rec_chips or rec_chips > ELASTIC_CHIPS - 8:
+        fail(f"{arch} driver: the replan took {rec_chips} chips")
+    del state, saved
+    platform.reset_launches()
+    with contextlib.redirect_stdout(sys.stderr):
+        r2 = train.main(args + ["--steps", str(DRIVER_STEPS[1])])
+    _sync(dev)
+    steps2 = DRIVER_STEPS[1] - DRIVER_STEPS[0]
+    c2 = _train_counts(platform, cfg, steps2, f"{arch} resumed driver")
+    r2.pop("state")
+    if len(r2["losses"]) != steps2 or not np.isfinite(r2["losses"]).all():
+        fail(f"{arch} driver: the resumed run gave {len(r2['losses'])} "
+             f"losses, finite: {np.isfinite(r2['losses']).all()}")
+    losses = r1["losses"] + r2["losses"]
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    if not last < first - DRIVER_MARGIN:
+        fail(f"{arch} driver: mean loss {first:.3f} over the first 10 steps, "
+             f"{last:.3f} over the last 10 (want {DRIVER_MARGIN} lower)")
+    out = {"first10": first, "last10": last,
+           "step_ms": [r1["wall_s"] / DRIVER_STEPS[0] * 1e3,
+                       r2["wall_s"] / steps2 * 1e3],
+           "slowdown": [r1["slowdown"], r2["slowdown"]],
+           "replan_s": replan_s, "replan_chips": rec_chips,
+           "downtime_s": ctl.log[-1]["downtime_s"],
+           "launches": [c1["launches"], c2["launches"]]}
+    log(f"{arch} driver: {out}")
+    _free()
+    return out
+
+
+def phase_lm_training(dev) -> dict:
+    """The LM training phase: each mixer kind's model at full width
+    (``train_full``), then the driver with resume at its smoke config
+    (``train_driver``)."""
+    import shutil
+    import tempfile
+
+    full = {arch: train_full(dev, arch) for arch in TRAIN_CUTS}
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    try:
+        driver = {arch: train_driver(dev, arch, root)
+                  for arch in TRAIN_CUTS}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"full": full, "driver": driver}
+
+
 def _decode_row(timing: dict) -> dict:
     """The decode call's numbers beside a recurrence kernel's prefill ones
     in the kernels line (T = 1 from a state, back to back)."""
@@ -3035,6 +3402,9 @@ def main() -> int:
     # phase 7: LM serving (counted per model inside)
     lm = phase_lm(dev)
     mark("lm_serving")
+    # phase 7b: LM training (counted per model and run inside)
+    training = phase_lm_training(dev)
+    mark("lm_training")
 
     # phase 8: assertions
     for label, st in (("single task", single["stats"]),
@@ -3128,7 +3498,9 @@ def main() -> int:
          **{k: lm["timing"]["wkv_prefill"][k]
             for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                       "library_ms", "layout")},
-         **_decode_row(lm["timing"]["wkv_decode"])},
+         **_decode_row(lm["timing"]["wkv_decode"]),
+         "training_launches": training["full"]["rwkv6-3b"]["launches"][
+             "rwkv6_wkv"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:29",
@@ -3137,7 +3509,9 @@ def main() -> int:
          **{k: lm["timing"]["flash"]["bfloat16_512"][k]
             for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                       "library_ms")},
-         "kernel_route": "wgmma"},
+         "kernel_route": "wgmma",
+         "training_launches": training["full"]["qwen3-4b"]["launches"][
+             "flash_attention"]},
         {"name": "mamba_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
          "replaces": "src/repro/kernels/mamba_scan.py:26",
@@ -3146,7 +3520,9 @@ def main() -> int:
          **{k: lm["timing"]["scan_prefill"][k]
             for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                       "library_ms", "bound_terms_ms")},
-         **_decode_row(lm["timing"]["scan_decode"])},
+         **_decode_row(lm["timing"]["scan_decode"]),
+         "training_launches": training["full"]["jamba-v0.1-52b"][
+             "launches"]["mamba_scan"]},
     ]
     summary = {"single_task": {k: v for k, v in single.items()
                                if k != "stats"},
@@ -3169,7 +3545,7 @@ def main() -> int:
                "descend": d,
                "compose_path": c_main, "compose_4096": c_big,
                "mlp_check": m_chk, "mlp_gate": m_gate, "mlp_4096": m_big,
-               "lm": lm, "phase_s": phase_s}
+               "lm": lm, "training": training, "phase_s": phase_s}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
@@ -3250,6 +3626,18 @@ def main() -> int:
         for arch, m in lm["models"].items()}}), flush=True)
     print(json.dumps({"decode_host_us": lm["timing"]["decode_host_us"]}),
           flush=True)
+    print(json.dumps({"training": {
+        "card": card, "full": {
+            arch: {k: m[k] for k in ("layers", "params_b", "step_ms",
+                                     "tokens_per_s", "device_ms",
+                                     "backward_share", "peak_mem_gb",
+                                     "losses", "grad_norms", "plain_first",
+                                     "plain_rel_err")}
+            for arch, m in training["full"].items()},
+        "driver": {arch: {k: d[k] for k in ("first10", "last10", "step_ms",
+                                            "replan_s", "replan_chips")}
+                   for arch, d in training["driver"].items()}}}),
+        flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,2 +1,3 @@
-"""Launch layer: the serving CLI, execution plans and roofline-term
-extraction (train, dry-run and the mesh wait for their slices)."""
+"""Launch layer: the serving and training CLIs, execution plans and
+roofline-term extraction (the dry-run and the mesh wait for their
+slice)."""

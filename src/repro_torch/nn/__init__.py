@@ -1,6 +1,7 @@
 """Model substrate: GQA attention (RoPE, qk-norm), RWKV-6 (Finch), Mamba
 (S6), MoE FFNs, norms, blocks over a loop of layers, and the LM assembly
-with its prefill and decode entry points, for all ten architectures.
+with its training loss, its prefill and decode entry points and its
+abstract (``meta``) trees, for all ten architectures.
 
 Parameters are nested dicts of tensors; ``nn.convert`` carries the JAX
 package's parameters and caches across.
@@ -16,17 +17,21 @@ from .config import (
     ShapeSpec,
 )
 from .model import (
+    abstract_cache,
+    abstract_params,
     cache_max_seq,
     cast_params,
     decode_step,
     forward,
     init_cache,
     init_params,
+    loss_fn,
     prefill,
 )
 
 __all__ = [
     "SHAPES", "ArchConfig", "HybridConfig", "MambaConfig", "MoEConfig",
-    "RWKVConfig", "ShapeSpec", "cache_max_seq", "cast_params", "decode_step",
-    "forward", "init_cache", "init_params", "prefill",
+    "RWKVConfig", "ShapeSpec", "abstract_cache", "abstract_params",
+    "cache_max_seq", "cast_params", "decode_step", "forward", "init_cache",
+    "init_params", "loss_fn", "prefill",
 ]

@@ -9,6 +9,11 @@ own type; caches go back the other way for comparison.  Nothing here
 imports the JAX package: the caller does the export.  bfloat16 arrays (the
 ``ml_dtypes`` type numpy holds them in) pass through float32, which is
 exact.
+
+Train checkpoints are kept in the reference's layout, so that either
+package resumes from the other's: ``stack_blocks`` / ``unstack_blocks``
+turn a parameter-shaped tree (parameters, Adam moments) into it and back,
+and ``stacked_like`` describes it for a restore without allocating it.
 """
 
 from __future__ import annotations
@@ -68,3 +73,58 @@ def cache_to_numpy(cache: list) -> dict:
         return stack(*trees)
 
     return merge(list(cache))
+
+
+def opt_state_from_numpy(tree: dict, device=None) -> dict:
+    """The reference's Adam state ``{"mu", "nu", "count"}`` (numpy leaves)
+    -> the port's on ``device`` (the host when None)."""
+    return {"mu": params_from_numpy(tree["mu"], device),
+            "nu": params_from_numpy(tree["nu"], device),
+            "count": torch.tensor(np.asarray(tree["count"]),
+                                  dtype=torch.int32, device=device)}
+
+
+def _stack_units(units: list):
+    first = units[0]
+    if isinstance(first, dict):
+        return {k: _stack_units([u[k] for u in units]) for k in first}
+    return torch.stack(units)
+
+
+def stack_blocks(tree: dict) -> dict:
+    """A parameter-shaped tree with ``blocks`` a list over units -> the
+    same with each block leaf stacked over units (the reference's layout;
+    a copy on the leaves' device)."""
+    out = dict(tree)
+    out["blocks"] = _stack_units(list(tree["blocks"]))
+    return out
+
+
+def unstack_blocks(tree: dict) -> dict:
+    """``stack_blocks``'s inverse: the units are views of the stacked
+    leaves (no copy)."""
+    out = dict(tree)
+    out["blocks"] = _unstack_tensors(tree["blocks"])
+    return out
+
+
+def _unstack_tensors(stacked) -> list:
+    leaf = stacked
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    return [tree_map(lambda a, u=u: a[u], stacked)
+            for u in range(leaf.shape[0])]
+
+
+def stacked_like(tree: dict) -> dict:
+    """A stand-in for ``stack_blocks(tree)`` with each block leaf an
+    expanded 0-d tensor of its device and dtype: the shapes a checkpoint
+    restore checks against, with no storage behind them."""
+    def stand_in(*units):
+        t = units[0]
+        return torch.empty((), dtype=t.dtype, device=t.device).expand(
+            len(units), *t.shape)
+
+    out = dict(tree)
+    out["blocks"] = tree_map(stand_in, *tree["blocks"])
+    return out

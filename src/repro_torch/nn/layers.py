@@ -15,12 +15,23 @@ import math
 import torch
 
 
+class MetaGen:
+    """Stands in for a ``torch.Generator`` where parameters are only
+    described (``nn.model.abstract_params``): it draws nothing."""
+
+    device = torch.device("meta")
+
+
 def param(gen: torch.Generator, shape: tuple, dtype: torch.dtype,
           init: str = "normal", scale: float | None = None) -> torch.Tensor:
     """One parameter on ``gen``'s device: ``normal`` (std ``1/sqrt(fan_in)``
     unless ``scale``), ``uniform`` in ``[-scale, scale]`` (default 1),
-    ``zeros`` or ``ones``; random draws are float32, then cast."""
+    ``zeros`` or ``ones``; random draws are float32, then cast.  On the
+    ``meta`` device (``gen`` a :class:`MetaGen`) every kind is an empty
+    tensor of the shape and dtype, which allocates nothing."""
     dev = gen.device
+    if dev.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=dev)
     if init == "zeros":
         return torch.zeros(shape, dtype=dtype, device=dev)
     if init == "ones":

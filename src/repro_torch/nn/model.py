@@ -1,11 +1,11 @@
-"""LM assembly: embeddings -> blocks -> final norm -> unembed, and the
-prefill/decode serving entry points.
+"""LM assembly: embeddings -> blocks -> final norm -> unembed, plus the
+training loss and the prefill/decode serving entry points.
 
 ``init_params`` and ``init_cache`` take ``device=None`` (= ``cuda``, which
 raises on a host without one); the tests pass ``device="cpu"``.  Parameters
 are nested dicts of tensors with the blocks as a list over scan units
-(``nn.blocks``).  The training loss and the abstract (shape-only) trees
-wait for the training and dry-run slices.
+(``nn.blocks``).  ``abstract_params`` / ``abstract_cache`` build the same
+trees as tensors on the ``meta`` device: shapes and dtypes, no storage.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from ..kernels.platform import resolve_device
 from .blocks import blocks_apply, blocks_cache_init, blocks_init
 from .config import ArchConfig
 from .layers import (
+    MetaGen,
     embed,
     embed_init,
     rmsnorm,
@@ -30,11 +31,7 @@ from .layers import (
 # ---------------------------------------------------------------------------
 
 
-def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
-    """Random parameters at ``cfg``'s shapes, drawn in the reference's order
-    from one ``torch.Generator`` seeded with ``seed`` on ``device``."""
-    dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+def _params(gen, cfg: ArchConfig) -> dict:
     dt = cfg.pdtype()
     p = {}
     if not cfg.embed_input:
@@ -46,10 +43,28 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
     return p
 
 
+def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
+    """Random parameters at ``cfg``'s shapes, drawn in the reference's order
+    from one ``torch.Generator`` seeded with ``seed`` on ``device``."""
+    dev = resolve_device(device)
+    return _params(torch.Generator(device=dev).manual_seed(seed), cfg)
+
+
+def abstract_params(cfg: ArchConfig) -> dict:
+    """The parameter tree as ``meta`` tensors (the dry-run's; no
+    allocation)."""
+    return _params(MetaGen(), cfg)
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
                device=None) -> list:
     """A zero decode cache for ``batch`` rows of up to ``max_seq`` tokens."""
     return blocks_cache_init(cfg, batch, max_seq, resolve_device(device))
+
+
+def abstract_cache(cfg: ArchConfig, batch: int, max_seq: int) -> list:
+    """The decode cache as ``meta`` tensors (no allocation)."""
+    return blocks_cache_init(cfg, batch, max_seq, torch.device("meta"))
 
 
 # ---------------------------------------------------------------------------
@@ -103,6 +118,34 @@ def forward(params, cfg: ArchConfig, batch: dict, mode: str = "train",
     x, cache = blocks_apply(params["blocks"], cfg, x, mode=mode,
                             max_seq=max_seq)
     return _logits(params, cfg, x), cache
+
+
+def loss_fn(params, cfg: ArchConfig, batch: dict) -> tuple:
+    """Next-token cross entropy in fp32, the last position masked (for
+    ``embed_input`` archs: ``batch["labels"]``, every position counted).
+    Returns (loss, {"loss", "accuracy", "tokens"}), 0-d tensors; the loss
+    carries the graph of ``params``."""
+    logits, _ = forward(params, cfg, batch, mode="train")
+    if cfg.embed_input:
+        labels = batch["labels"].long()
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=labels.device)
+    else:
+        tokens = batch["tokens"].long()
+        labels = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])],
+                           dim=1)
+        mask = torch.ones(tokens.shape, dtype=torch.float32,
+                          device=tokens.device)
+        mask[:, -1] = 0.0
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    lab = torch.gather(logits, -1, labels[..., None])[..., 0]
+    nll = (lse - lab) * mask
+    count = mask.sum()
+    denom = count.clamp_min(1.0)
+    loss = nll.sum() / denom
+    acc = ((logits.argmax(-1) == labels) * mask).sum() / denom
+    return loss, {"loss": loss, "accuracy": acc, "tokens": count}
 
 
 # ---------------------------------------------------------------------------

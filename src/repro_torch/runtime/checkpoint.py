@@ -198,13 +198,15 @@ def _leaf_like(arr: np.ndarray, stored: str, like):
     """A stored array as a leaf like ``like``: a tensor on its device and
     in its dtype, or a numpy array in its dtype."""
     if stored == _BF16 or arr.dtype == np.dtype("V2"):
-        t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16))
+        # ascontiguousarray gives a 0-d array one dimension: reshape back
+        t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)
+                             .reshape(arr.shape))
         t = t.view(torch.bfloat16)
     else:
         t = None
     if isinstance(like, torch.Tensor):
         if t is None:
-            t = torch.from_numpy(np.ascontiguousarray(arr))
+            t = torch.from_numpy(np.ascontiguousarray(arr).reshape(arr.shape))
         return t.to(device=like.device, dtype=like.dtype)
     if t is not None:
         return t.float().numpy().astype(np.asarray(like).dtype)

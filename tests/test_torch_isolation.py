@@ -32,7 +32,7 @@ from repro_torch.core.frontier_store import FrontierStore
 from repro_torch.data.workloads import batch_problem, batch_suite, batch_task
 from repro_torch.exec import ProbeExecutor, default_executor
 from repro_torch.configs import get_smoke
-from repro_torch.launch import serve
+from repro_torch.launch import serve, train
 from repro_torch.nn import init_cache, init_params
 from repro_torch.serving import ServeEngine
 
@@ -71,7 +71,11 @@ def test_every_module_is_covered():
                  "repro_torch.nn.mamba", "repro_torch.nn.moe",
                  "repro_torch.configs.jamba_v0_1_52b",
                  "repro_torch.configs.qwen2_moe_a2_7b",
-                 "repro_torch.configs.grok_1_314b"):
+                 "repro_torch.configs.grok_1_314b",
+                 "repro_torch.training", "repro_torch.training.adam",
+                 "repro_torch.training.train_step",
+                 "repro_torch.data.lm_data", "repro_torch.runtime.straggler",
+                 "repro_torch.runtime.elastic", "repro_torch.launch.train"):
         assert want in mods
 
 
@@ -115,7 +119,7 @@ def no_cuda():
     "default_executor", "store", "solve_pf", "pf", "solver", "solver_for",
     "init_params", "init_cache", "serve_engine", "launch_serve",
     "init_params_jamba", "init_cache_jamba", "serve_engine_moe",
-    "launch_serve_jamba",
+    "launch_serve_jamba", "launch_train", "launch_train_rwkv",
 ])
 def test_entry_points_default_to_cuda_and_raise_here(no_cuda, entry):
     cpu_problem = as_problem(zdt1_task(d=3, device="cpu"))
@@ -146,6 +150,10 @@ def test_entry_points_default_to_cuda_and_raise_here(no_cuda, entry):
             get_smoke("qwen2-moe-a2.7b"), batch=1, max_seq=8),
         "launch_serve_jamba": lambda: serve.main(["--arch", "jamba-v0.1-52b",
                                                   "--smoke"]),
+        "launch_train": lambda: train.main(["--arch", "qwen3-4b", "--smoke",
+                                            "--steps", "1"]),
+        "launch_train_rwkv": lambda: train.main(["--arch", "rwkv6-3b",
+                                                 "--smoke", "--steps", "1"]),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()

@@ -1136,3 +1136,58 @@ class TestBaselinesAndPlannerOnCard:
         np.testing.assert_allclose(np.sort(rec.frontier_F, axis=0),
                                    np.sort(host.F, axis=0), rtol=1e-5,
                                    atol=1e-5)
+
+
+@pytest.mark.cuda
+class TestTrainingOnCard:
+    """One ``make_train_step`` step of each mixer kind's smoke config (fp32
+    compute) on the card, through the flash, WKV and scan kernels and their
+    recompute backward, against the same step on the host's plain versions:
+    the loss at 1e-4, the updated parameters at 1e-5 where the gradient
+    exceeds 1e-3 of its leaf's largest entry and within 2 lr elsewhere
+    (Adam's first step moves each parameter by lr times its gradient's
+    sign; ``tests/test_torch_training.py`` states the same rule)."""
+
+    LR = 1e-3
+
+    @pytest.mark.parametrize("arch,kernel", [
+        ("qwen3-4b", "flash_attention"), ("rwkv6-3b", "rwkv6_wkv"),
+        ("jamba-v0.1-52b", "mamba_scan")])
+    def test_train_step_on_card_equals_host(self, cuda_device, arch, kernel):
+        from repro_torch.configs import get_smoke
+        from repro_torch.exec import tree_map
+        from repro_torch.nn import init_params
+        from repro_torch.nn.model import tree_leaves
+        from repro_torch.training import (
+            AdamConfig,
+            TrainStepConfig,
+            adam_init,
+            make_train_step,
+        )
+
+        cfg = get_smoke(arch).replace(compute_dtype="float32")
+        adam = AdamConfig(lr=self.LR)
+        step = make_train_step(cfg, TrainStepConfig(adam=adam))
+        toks = torch.tensor(np.random.default_rng(0).integers(
+            0, cfg.vocab, (2, 64)), dtype=torch.int32)
+        host = init_params(cfg, seed=0, device="cpu")
+        out = {}
+        for dev in ("cpu", cuda_device):
+            tree = tree_map(lambda t, d=dev: t.to(d), host)
+            platform.reset_launches()
+            p2, o2, m = step(tree, adam_init(tree, adam),
+                             {"tokens": toks.to(dev)})
+            out[str(dev)] = (p2, o2, m, platform.launch_counts(),
+                             platform.plain_on_cuda_counts())
+        (hp, ho, hm, _, _), (cp, co, cm, launches, plain) = (
+            out["cpu"], out[str(cuda_device)])
+        assert launches.get(kernel, 0) > 0 and not plain
+        np.testing.assert_allclose(float(cm["loss"]), float(hm["loss"]),
+                                   rtol=1e-4, atol=1e-4)
+        for got, want, mu in zip(tree_leaves(cp), tree_leaves(hp),
+                                 tree_leaves(ho["mu"])):
+            got, want, mu = got.cpu().numpy(), want.numpy(), mu.numpy()
+            big = np.abs(mu) > 1e-3 * np.abs(mu).max()
+            np.testing.assert_allclose(got[big], want[big], rtol=1e-5,
+                                       atol=1e-5)
+            assert np.all(np.abs(got - want) <= 2 * self.LR + 1e-5)
