@@ -206,12 +206,14 @@ MLP_EDGE_DIMS = ((13, 1), (13, 128, 128, 2), (13, 24, 10, 1),
                  (13, 40, 72, 16, 128, 1))
 MLP_STREAMED = (13, 1000, 1000, 1)  # 4 MB of weights: the ring streams them
 # the front-desk phase: one ticket a batch_suite() tenant, the SLO classes
-# dealt round-robin, and the recommend calls a second thread makes while
-# the plane dispatches
+# dealt round-robin, and the recommend calls a second thread makes; one
+# executor dispatch of the plane is held (at most FD_HOLD_S) while that
+# thread makes FD_RECOMMENDS calls, which must all answer
 FD_CLASSES = ("interactive", "standard", "batch")
 FD_PROBES = 16
 FD_RECOMMENDS = 200
 FD_RECOMMEND_PAUSE_S = 1e-3
+FD_HOLD_S = 120.0
 # after the burst (whose init phase sheds the interactive class), waves of
 # FD_WAVE_SIZE tickets, the classes dealt round-robin, on sessions the
 # burst initialized: each class must complete through a dispatch there
@@ -288,6 +290,16 @@ TRAIN_SMOKE_SHAPES = {
     "mamba_scan": {"B": 16, "T": 32, "d": 128, "n": 4}}
 DRIVER_MARGIN = 1.5
 ELASTIC_CHIPS = 256
+# the distribution phase: the tenants' paper-shape structure dispatched
+# through probe meshes (DIST_BOXES boxes a tenant coalesced on the group
+# axis, DIST_ROW_BOXES boxes of one tenant on the row axis) held to the
+# unsharded dispatch at DIST_PROBE_TOL (the reference's TestMeshPath), and
+# qwen3-4b at full width, DIST_LAYERS layers, on a (1, 1) DeviceMesh with
+# the sharding rules held to the same calls without them at DIST_LM_TOL
+DIST_BOXES, DIST_ROW_BOXES = 2, 64
+DIST_PROBE_TOL = 1e-5
+DIST_LAYERS = 2
+DIST_LM_TOL = 1e-4
 
 
 def log(*args) -> None:
@@ -1371,9 +1383,12 @@ def check_composed(dag, comp, stage_frontiers, label: str) -> None:
                          f"outside [{spec.low}, {spec.high}]")
 
 
-def phase_service(dev, rounds: int = 4) -> dict:
+def phase_service(dev, rounds: int = 3) -> dict:
     """MOOService with the reference's defaults over 258 tenants and two
-    DAG jobs; recommendations; then solve_dag at expt5's full size."""
+    DAG jobs; recommendations; then solve_dag at expt5's full size.  Three
+    ``step_all`` rounds (four until the distribution phase was added; a
+    round after the first is ~8.5 s on an H100, and the run's limit is
+    kept with the new phase)."""
     import torch
 
     from repro_torch.core import MOGDConfig, solve_dag
@@ -1872,9 +1887,11 @@ def phase_frontdesk(dev, vault_dir) -> dict:
     ticket must end done (or shed, where its class allows it), every batch
     ticket done, every breakdown must sum to its end-to-end latency, and
     the rounds' persist phase must have snapshotted sessions to the vault.
-    The service's tracer records the plane's dispatch spans: ``recommend``
-    must answer at least ``FD_RECOMMENDS`` times inside them.
-    Then every session is closed (its state persisted) and the vault
+    The first executor dispatch the plane makes after a ticket has
+    completed is held inside its ``frontdesk.dispatch`` span until the
+    second thread has made ``FD_RECOMMENDS`` ``recommend`` calls, each of
+    which must answer while it is held (the service lock is released
+    while a dispatch is in flight).  Then every session is closed (its state persisted) and the vault
     flushed; the closed states come back for the vault phase."""
     import threading
 
@@ -1895,28 +1912,61 @@ def phase_frontdesk(dev, vault_dir) -> dict:
     desk = FrontDesk(svc, capacity=2 * len(specs))
     served: list = []  # session ids with a completed ticket
     rec_s: list = []  # (start on the tracer's clock, seconds)
+    held_s: list = []  # seconds of the calls made while a dispatch is held
     stop = threading.Event()
+    held, release = threading.Event(), threading.Event()
+    hold: dict = {}  # the held dispatch's window on the tracer's clock
     errors: list = []
+    solve = svc.executor.solve_requests
+
+    def held_solve(*args, **kwargs):
+        # the plane's first executor dispatch after a ticket completed
+        # waits (inside its dispatch span) for the reader's burst
+        if (served and not held.is_set() and threading.current_thread()
+                .name == "frontdesk-dispatcher"):
+            hold["t0"] = time.perf_counter()
+            held.set()
+            if not release.wait(timeout=FD_HOLD_S):
+                errors.append(f"the held dispatch was not released in "
+                              f"{FD_HOLD_S} s")
+            hold["t1"] = time.perf_counter()
+        return solve(*args, **kwargs)
+
+    svc.executor.solve_requests = held_solve
+
+    def call(i) -> float | None:
+        sid = served[i % len(served)]
+        t0 = time.perf_counter()
+        try:
+            rec = svc.recommend(sid)
+        except Exception as e:  # reported and failed below
+            errors.append(repr(e))
+            return None
+        dt = time.perf_counter() - t0
+        rec_s.append((t0, dt))
+        if len(rec.config) != 12:
+            errors.append(f"recommend({sid}) set {len(rec.config)} knobs")
+            return None
+        return dt
 
     def reader():
         i = 0
         while not stop.is_set():
+            if held.is_set() and not release.is_set():
+                for _ in range(FD_RECOMMENDS):
+                    dt = call(i)
+                    i += 1
+                    if dt is None:
+                        return
+                    held_s.append(dt)
+                release.set()
+                continue
             if not served:
                 time.sleep(FD_RECOMMEND_PAUSE_S)
                 continue
-            sid = served[i % len(served)]
+            if call(i) is None:
+                return
             i += 1
-            t0 = time.perf_counter()
-            try:
-                rec = svc.recommend(sid)
-            except Exception as e:  # reported and failed below
-                errors.append(repr(e))
-                return
-            rec_s.append((t0, time.perf_counter() - t0))
-            if len(rec.config) != 12:
-                errors.append(f"recommend({sid}) set {len(rec.config)} "
-                              f"knobs")
-                return
             time.sleep(FD_RECOMMEND_PAUSE_S)
 
     t0 = time.perf_counter()
@@ -1981,14 +2031,18 @@ def phase_frontdesk(dev, vault_dir) -> dict:
                    for t in wave if t.slo.name == name):
             fail(f"front desk waves: no {name} ticket done through a "
                  f"dispatch")
+    svc.executor.solve_requests = solve
     spans = svc.obs.tracer.spans()
     windows = sorted((sp.t0, sp.t1) for sp in spans
                      if sp.name == "frontdesk.dispatch")
     rec_busy = [dt for t, dt in rec_s
                 if any(a <= t <= b for a, b in windows)]
-    if len(rec_busy) < FD_RECOMMENDS:
-        fail(f"front desk: {len(rec_busy)} recommend calls while the plane "
-             f"dispatched ({len(rec_s)} in all), want {FD_RECOMMENDS}")
+    if len(held_s) != FD_RECOMMENDS or "t1" not in hold:
+        fail(f"front desk: {len(held_s)} recommend calls answered while a "
+             f"dispatch was held, want {FD_RECOMMENDS}")
+    if not any(a <= hold["t0"] and hold["t1"] <= b for a, b in windows):
+        fail("front desk: the held dispatch lies in no frontdesk.dispatch "
+             "span")
     persist_s = svc._h_round["persist_s"].sum
     if persist_s <= 0.0 or svc.vault_snapshots <= 0:
         fail(f"front desk: persist_s {persist_s}, vault snapshots "
@@ -2015,7 +2069,9 @@ def phase_frontdesk(dev, vault_dir) -> dict:
     plane = desk.stats()
     out = {"tickets": len(tickets), "wall_s": wall_s, "submit_s": submit_s,
            "by_class": by_class, "wave_by_class": wave_by_class,
-           "recommend_s": {"while_dispatching": _pcts(rec_busy),
+           "recommend_s": {"while_held": _pcts(held_s),
+                           "hold_s": hold["t1"] - hold["t0"],
+                           "in_dispatch_spans": len(rec_busy),
                            "all": _pcts([dt for _, dt in rec_s])},
            "dispatch_walls_s": [b - a for a, b in windows],
            "dispatches": plane["dispatches"],
@@ -3129,6 +3185,243 @@ def train_full(dev, arch: str) -> dict:
     return out
 
 
+def _probe_mesh_runs(dev) -> dict:
+    """The tenants' structure (D = 13, hidden (128,)*4, one task a
+    ``batch_suite()`` workload) through three executors: ``mesh=None``,
+    ``probe_mesh()`` (one card: the unsharded program) and a two-shard
+    ``ProbeMesh((cuda:0, cuda:0))``; all tenants coalesced (the group
+    axis), then one tenant's many boxes (the row axis).  Each dispatch is
+    held to the unsharded one; the descend kernel must launch once a
+    shard and no plain version run on the card."""
+    import numpy as np
+
+    from repro_torch.core import MOGDConfig
+    from repro_torch.core.mogd import (
+        MOGDSolver,
+        estimate_objective_bounds,
+        solve_grouped,
+    )
+    from repro_torch.data.workloads import batch_suite
+    from repro_torch.distributed import ProbeMesh, probe_mesh
+    from repro_torch.exec import ProbeExecutor
+    from repro_torch.kernels import platform
+
+    problems = [spark_task(1 + i, dev, w).compile()
+                for i, w in enumerate(batch_suite())]
+    boxes = []
+    for i, p in enumerate(problems):
+        b = estimate_objective_bounds(p, n=256, seed=i)
+        rng = np.random.default_rng(i)
+        n = DIST_ROW_BOXES if i == 0 else DIST_BOXES
+        lo = b[0] + rng.random((n, p.k)) * 0.3 * (b[1] - b[0])
+        hi = lo + (0.2 + 0.5 * rng.random((n, p.k))) * (b[1] - b[0])
+        boxes.append(np.stack([lo, hi], axis=1))
+    meshes = {"none": None, "probe_mesh": probe_mesh(),
+              "two_shards": ProbeMesh([dev, dev])}
+    runs = {}
+    for name, mesh in meshes.items():
+        # "fused": no one-time parity gate, whose own launch would count
+        ex = ProbeExecutor(mesh=mesh, backend="fused", device=dev)
+        for axis in ("group", "row"):
+            solvers = [MOGDSolver(p, MOGDConfig(), executor=ex, device=dev)
+                       for p in problems]
+            platform.reset_launches()
+            t0 = time.perf_counter()
+            if axis == "group":
+                res = solve_grouped([(s, b[:DIST_BOXES], 0)
+                                     for s, b in zip(solvers, boxes)])
+            else:
+                res = solvers[0].solve(boxes[0], 0)
+            seconds = time.perf_counter() - t0
+            runs[(name, axis)] = {
+                "res": res, "seconds": seconds,
+                "launches": platform.launch_counts().get("descend_batch", 0),
+                "plain": platform.plain_on_cuda_counts(),
+                "bucket": list(ex.last_bucket),
+                "sharded_axis": ex.last_shard_axis,
+                "sharded_dispatches": ex.sharded_dispatches}
+    out = {}
+    refs = {axis: runs[("none", axis)]["res"] for axis in ("group", "row")}
+    for (name, axis), r in runs.items():
+        ref, res = refs[axis], r.pop("res")
+        dx = float(np.abs(res.x - ref.x).max())
+        df = float(np.abs(res.f - ref.f).max())
+        same_feas = bool((res.feasible == ref.feasible).all())
+        label = f"probe mesh {name}, {axis} axis"
+        if not (dx <= DIST_PROBE_TOL and df <= DIST_PROBE_TOL and same_feas):
+            fail(f"{label}: |dx| {dx}, |df| {df}, feasibility equal "
+                 f"{same_feas} against mesh=None (want <= {DIST_PROBE_TOL})")
+        shards = 2 if name == "two_shards" else 1
+        if r["launches"] != shards:
+            fail(f"{label}: descend launched {r['launches']} times, want "
+                 f"{shards} (once a shard)")
+        if name == "two_shards" and r["sharded_axis"] != axis:
+            fail(f"{label}: the dispatch was sharded on "
+                 f"{r['sharded_axis']}")
+        if name != "two_shards" and r["sharded_dispatches"]:
+            fail(f"{label}: {r['sharded_dispatches']} sharded dispatches")
+        if r["plain"]:
+            fail(f"{label}: plain versions ran on the card: {r['plain']}")
+        out[f"{name}/{axis}"] = {**r, "max_dx": dx, "max_df": df,
+                                 "feasible_equal": same_feas}
+    log(f"probe meshes: {out}")
+    return out
+
+
+def _psum_one_rank(dev) -> dict:
+    """``compressed_psum`` over the running one-rank NCCL group: the mean
+    is ``dequantize(quantize(g))`` and within half a step of ``g``."""
+    import torch
+
+    from repro_torch.distributed import (
+        compressed_psum,
+        dequantize_int8,
+        quantize_int8,
+    )
+
+    g = torch.randn((4096,), generator=torch.Generator(dev).manual_seed(0),
+                    device=dev)
+    mean, resid = compressed_psum(g, torch.zeros_like(g))
+    q, scale = quantize_int8(g)
+    want = dequantize_int8(q, scale)
+    exact = float((mean - want).abs().max())
+    half = float((mean - g).abs().max())
+    resid_err = float((resid - (g - want)).abs().max())
+    if exact != 0.0 or half > float(scale) / 2 * (1 + 1e-6) or resid_err:
+        fail(f"compressed_psum on NCCL: |mean - dequantize(quantize(g))| "
+             f"{exact}, |mean - g| {half} against scale/2 "
+             f"{float(scale) / 2}, residual off by {resid_err}")
+    out = {"max_abs_vs_dequantized": exact, "max_abs_vs_grad": half,
+           "half_scale": float(scale) / 2}
+    log(f"compressed_psum on NCCL: {out}")
+    return out
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def _sharded_lm(dev) -> dict:
+    """qwen3-4b at full width, ``DIST_LAYERS`` layers, bf16 compute, on a
+    (1, 1) ``("data", "model")`` DeviceMesh with the sharding rules: one
+    train step, a prefill and one decode, each held to the same call
+    without rules (loss, gradient norm and logits at ``DIST_LM_TOL``
+    relative), flash launched through ``local_map`` once a layer and
+    call; the step's milliseconds with and without the mesh."""
+    import numpy as np
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import ShardingRules, shard_tree
+    from repro_torch.kernels import platform
+    from repro_torch.nn import param_axes
+    from repro_torch.serving import make_decode_step, make_prefill_step
+    from repro_torch.training import (
+        AdamConfig,
+        TrainStepConfig,
+        adam_init,
+        make_train_step,
+    )
+
+    cfg = get_config("qwen3-4b").replace(n_layers=DIST_LAYERS)
+    params, n_params, _ = _instance(dev, cfg)
+    axes = param_axes(cfg)
+    mesh = DeviceMesh("cuda", torch.zeros((1, 1), dtype=torch.int64),
+                      mesh_dim_names=("data", "model"))
+    rules = ShardingRules(mesh)
+    params_s = shard_tree(rules, params, axes)
+    toks = torch.randint(0, cfg.vocab, (TRAIN_B, TRAIN_S),
+                         generator=torch.Generator(dev).manual_seed(3),
+                         device=dev, dtype=torch.int32)
+    batch = {"tokens": toks}
+    batch_s = shard_tree(rules, batch, {"tokens": ("batch", None)})
+    adam = AdamConfig(lr=TRAIN_LR)
+    ts = TrainStepConfig(adam=adam)
+    plain_step = make_train_step(cfg, ts)
+    mesh_step = make_train_step(cfg, ts, rules, param_axes=axes)
+    out, walls = {}, {"plain": [], "mesh": []}
+    for rep in range(3):  # the first of each is a warm-up
+        for name, step, p, b in (("plain", plain_step, params, batch),
+                                 ("mesh", mesh_step, params_s, batch_s)):
+            platform.reset_launches()
+            _sync(dev)
+            t0 = time.perf_counter()
+            _, _, m = step(p, adam_init(p, adam), b)
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            walls[name].append(time.perf_counter() - t0)
+            out[name] = {"loss": loss, "grad_norm": gnorm,
+                         "launches": platform.launch_counts(),
+                         "plain_on_card": platform.plain_on_cuda_counts()}
+    step_ms = {k: float(np.median(v[1:])) * 1e3 for k, v in walls.items()}
+    train_err = {k: _rel(out["mesh"][k], out["plain"][k])
+                 for k in ("loss", "grad_norm")}
+    flash = out["mesh"]["launches"].get("flash_attention", 0)
+    if max(train_err.values()) > DIST_LM_TOL:
+        fail(f"sharded qwen3-4b train step: {out['mesh']} against "
+             f"{out['plain']} (relative {train_err})")
+    if flash != DIST_LAYERS or out["mesh"]["plain_on_card"]:
+        fail(f"sharded qwen3-4b train step: flash launched {flash} times "
+             f"(want {DIST_LAYERS}), plain versions on the card "
+             f"{out['mesh']['plain_on_card']}")
+    # prefill then one decode, with and without the rules
+    max_seq = TRAIN_S + 4
+    with torch.no_grad():
+        lg, cache = make_prefill_step(cfg, max_seq=max_seq)(params, batch)
+        dl, _ = make_decode_step(cfg)(params, cache,
+                                      {"tokens": toks[:, -1:]}, TRAIN_S)
+        platform.reset_launches()
+        lg_s, cache_s = make_prefill_step(cfg, rules, max_seq=max_seq)(
+            params_s, batch_s)
+        prefill_launches = platform.launch_counts()
+        dl_s, _ = make_decode_step(cfg, rules)(
+            params_s, cache_s, {"tokens": batch_s["tokens"][:, -1:]},
+            TRAIN_S)
+    serve_err = {}
+    for name, got, want in (("prefill", lg_s, lg), ("decode", dl_s, dl)):
+        got = got.full_tensor().float()
+        want = want.float()
+        serve_err[name] = float((got - want).abs().max()
+                                / want.abs().max().clamp_min(1e-30))
+    if max(serve_err.values()) > DIST_LM_TOL:
+        fail(f"sharded qwen3-4b serving: logits relative {serve_err}")
+    if prefill_launches.get("flash_attention", 0) != DIST_LAYERS:
+        fail(f"sharded qwen3-4b prefill: flash launched "
+             f"{prefill_launches.get('flash_attention', 0)} times")
+    res = {"layers": DIST_LAYERS, "params_b": n_params / 1e9,
+           "train": out, "train_rel_err": train_err,
+           "serve_rel_err": serve_err, "step_ms": step_ms,
+           "mesh_overhead": step_ms["mesh"] / step_ms["plain"] - 1.0,
+           "prefill_launches": prefill_launches,
+           "flash_launches": {"train_step": flash,
+                              "prefill": prefill_launches.get(
+                                  "flash_attention", 0)}}
+    log(f"sharded qwen3-4b: {res}")
+    del params, params_s, cache, cache_s
+    _free()
+    return res
+
+
+def phase_distribution(dev) -> dict:
+    """Probe meshes in the executor, the int8 compressed all-reduce on a
+    one-rank NCCL group, and the sharded LM steps on a (1, 1) mesh of
+    that group (destroyed after)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    probe = _probe_mesh_runs(dev)
+    root = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    dist.init_process_group("nccl", init_method=f"file://{root}/pg",
+                            rank=0, world_size=1)
+    try:
+        psum = _psum_one_rank(dev)
+        lm = _sharded_lm(dev)
+    finally:
+        dist.destroy_process_group()
+    return {"probe_mesh": probe, "compressed_psum": psum, "lm": lm}
+
+
 def _same_state(got, want, label: str, path: str = "") -> None:
     """``got`` equal to ``want`` bit for bit: the same keys, and each leaf
     of the same dtype, device and shape with equal contents."""
@@ -3405,6 +3698,9 @@ def main() -> int:
     # phase 7b: LM training (counted per model and run inside)
     training = phase_lm_training(dev)
     mark("lm_training")
+    # phase 7c: distribution (launches counted inside)
+    distribution = phase_distribution(dev)
+    mark("distribution")
 
     # phase 8: assertions
     for label, st in (("single task", single["stats"]),
@@ -3470,7 +3766,9 @@ def main() -> int:
          "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
          "bound_by": d["bound_by"], "library_ms": None,
          "kernel_route": d["route"], "ms_before": d["ms_streaming"],
-         "device_ms": d["device_ms"]},
+         "device_ms": d["device_ms"],
+         "two_shard_launches": distribution["probe_mesh"][
+             "two_shards/group"]["launches"]},
         {"name": "pairwise_compose", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/compose.cu",
          "replaces": "src/repro/kernels/compose.py:31",
@@ -3511,7 +3809,8 @@ def main() -> int:
                       "library_ms")},
          "kernel_route": "wgmma",
          "training_launches": training["full"]["qwen3-4b"]["launches"][
-             "flash_attention"]},
+             "flash_attention"],
+         "mesh_launches": distribution["lm"]["flash_launches"]},
         {"name": "mamba_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
          "replaces": "src/repro/kernels/mamba_scan.py:26",
@@ -3545,7 +3844,8 @@ def main() -> int:
                "descend": d,
                "compose_path": c_main, "compose_4096": c_big,
                "mlp_check": m_chk, "mlp_gate": m_gate, "mlp_4096": m_big,
-               "lm": lm, "training": training, "phase_s": phase_s}
+               "lm": lm, "training": training,
+               "distribution": distribution, "phase_s": phase_s}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
@@ -3638,6 +3938,14 @@ def main() -> int:
                                             "replan_s", "replan_chips")}
                    for arch, d in training["driver"].items()}}}),
         flush=True)
+    print(json.dumps({"distribution": {
+        "probe_mesh": {k: {f: r[f] for f in ("launches", "max_dx", "max_df",
+                                             "sharded_axis", "seconds")}
+                       for k, r in distribution["probe_mesh"].items()},
+        "compressed_psum": distribution["compressed_psum"],
+        "lm": {k: distribution["lm"][k]
+               for k in ("train_rel_err", "serve_rel_err", "step_ms",
+                         "mesh_overhead", "flash_launches")}}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""The unified probe-executor plane (DESIGN.md §10), on one device.
+"""The unified probe-executor plane (DESIGN.md §10).
 
 Every MOGD dispatch goes through one :class:`ProbeExecutor`.  Programs are
 keyed by **structure** — the surrogate program's content token, the
@@ -23,8 +23,13 @@ Consequences:
 
 PyTorch runs eagerly, so a "program" here is a Python closure built once
 per structure and bucket; the cache, the build counts and the ``stats()``
-telemetry keep the reference's meaning.  Mesh sharding is not part of this
-single-device executor: ``sharded_dispatches`` stays 0.
+telemetry keep the reference's meaning.
+
+A probe mesh (``distributed.ProbeMesh``) splits each padded batch along
+its group or row axis across the mesh's devices, as the reference's
+``shard_map`` does: each shard runs the same program on its own device
+and the results are concatenated (rows are independent descents, no
+collectives).
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ import numpy as np
 import torch
 from torch.func import grad, vmap
 
+from ..distributed.sharding import choose_probe_partition, probe_mesh
 from ..kernels.mogd_descend import _adam_update
 from ..kernels.platform import resolve_device
 from ..kernels.ref import clip
@@ -296,15 +302,37 @@ class ProbeExecutor:
     through the scan path); ``"jnp"`` forces the scan path; ``"fused"``
     requires a fusable structure and skips the parity gate.  ``device`` is
     where every dispatch runs (``None`` means ``cuda``).
+
+    ``mesh="auto"`` (the default) builds a 1-D probe mesh over the CUDA
+    devices when there is more than one (and the executor's device is a
+    CUDA one), else stays unsharded.  An explicit
+    :class:`~repro_torch.distributed.ProbeMesh` pins the devices (one may
+    be listed more than once: its shards run in turn); ``mesh=None``
+    disables sharding.  The sharded batch axis (groups vs rows) and
+    device-divisible bucket sizes come from the partitioning policy
+    (``distributed.choose_probe_partition``) applied to the tenant mix.
+    Buckets a mesh cannot divide fall back to the unsharded program.
     """
 
-    def __init__(self, bucket_fn: Callable[[int], int] = bucket,
+    def __init__(self, mesh="auto", mesh_axis: str | None = None,
+                 bucket_fn: Callable[[int], int] = bucket,
                  max_programs: int = 512, backend: str = "auto", obs=None,
                  device=None):
         if backend not in ("auto", "jnp", "fused"):
             raise ValueError(f"backend must be auto|jnp|fused, got "
                              f"{backend!r}")
         self.device = resolve_device(device)
+        if isinstance(mesh, str):
+            if mesh != "auto":
+                raise ValueError(f"mesh must be 'auto', None or a mesh, "
+                                 f"got {mesh!r}")
+            mesh = None
+            if self.device.type == "cuda" and torch.cuda.device_count() > 1:
+                mesh = probe_mesh()
+        self.mesh = mesh
+        self.mesh_axis = (
+            mesh_axis if mesh_axis is not None
+            else (mesh.axis_names[0] if mesh is not None else None))
         self.backend = backend
         self.bucket_fn = bucket_fn
         # LRU bound on built programs: a stream of distinct closure
@@ -371,7 +399,7 @@ class ProbeExecutor:
 
     @property
     def sharded_dispatches(self) -> int:
-        """Mesh-sharded dispatches (always 0 on this single-device plane)."""
+        """Mesh-sharded dispatches."""
         return int(self._c_sharded_dispatches.value)
 
     @property
@@ -429,10 +457,14 @@ class ProbeExecutor:
     # -- batcher seam ------------------------------------------------------
     def plan_buckets(self, G: int, R: int) -> tuple[int, int]:
         """The padded ``(G, R)`` bucket a dispatch of this size would run
-        at (bucket policy only; the reuse window needs the build history)."""
+        at (bucket policy + mesh divisibility; the reuse window needs the
+        build history)."""
         want_g = self.bucket_fn(max(1, int(G)))
         R = max(1, int(R))
         want_r = self.bucket_fn(R) if R == 1 else max(4, self.bucket_fn(R))
+        n = self._mesh_div()
+        if n > 1:
+            _, want_g, want_r = choose_probe_partition(n, want_g, want_r)
         return want_g, want_r
 
     # -- keys --------------------------------------------------------------
@@ -446,11 +478,18 @@ class ProbeExecutor:
         return (program.structure, encoder_structure(encoder), cfg,
                 bool(use_std))
 
+    def _mesh_div(self) -> int:
+        if self.mesh is None:
+            return 1
+        return int(self.mesh.shape[self.mesh_axis])
+
     def _choose_buckets(self, base_key: tuple, G: int, R: int) -> tuple:
         """(G, R) bucketing with reuse: prefer an already-built bucket pair
         within 4x total padded size of the wanted one over building a new
         program.  Multi-row groups floor the row bucket at 4; single-row
-        groups stay exact."""
+        groups stay exact.  On a multi-device mesh the wanted buckets pass
+        through the partitioning policy first.  Returns ``(Gp, Rp,
+        axis)``."""
         want_g, want_r = self.plan_buckets(G, R)
         built = self._built_buckets.get(base_key, ())
         reuse = [
@@ -458,8 +497,17 @@ class ProbeExecutor:
             if g >= want_g and r >= want_r
             and g * r <= 4 * want_g * want_r
         ]
-        return (min(reuse, key=lambda t: t[0] * t[1]) if reuse
-                else (want_g, want_r))
+        Gp, Rp = (min(reuse, key=lambda t: t[0] * t[1]) if reuse
+                  else (want_g, want_r))
+        axis = None
+        n = self._mesh_div()
+        if n > 1:
+            # the policy is idempotent on its own output, so the axis a
+            # reused bucket was built with is re-derived, never stored
+            axis, _, _ = choose_probe_partition(n, Gp, Rp)
+            if (axis == "group" and Gp % n) or (axis == "row" and Rp % n):
+                axis = None  # reused pre-policy bucket: unsharded fallback
+        return Gp, Rp, axis
 
     # -- fused backend (kernels/mogd_descend) ------------------------------
     def _descend_plan(self, req: ProbeRequest, skey: tuple):
@@ -542,7 +590,8 @@ class ProbeExecutor:
         return bool(torch.max(torch.abs(got - want)) <= 1e-3)
 
     # -- building ----------------------------------------------------------
-    def _build(self, req: ProbeRequest, skey: tuple, plan) -> Callable:
+    def _build(self, req: ProbeRequest, skey: tuple, plan,
+               axis: str | None = None) -> Callable:
         """Build the grouped descend-snap-select program for one structure.
 
         User bounds always participate with ±inf open edges (``max(-inf -
@@ -553,7 +602,9 @@ class ProbeExecutor:
         or None) selects the descend body: the fused kernel computes the
         whole batch's finals in one launch, the scan path descends by
         autograd.  Snap/score/select are shared — the fused backend changes
-        *where* the descent runs, never the semantics."""
+        *where* the descent runs, never the semantics.  ``axis`` is the
+        partitioning policy's shard axis for this bucket (None: one
+        program over the whole batch)."""
         apply = req.program.apply
         apply_std = req.program.apply_std
         use_std = req.use_std
@@ -639,9 +690,32 @@ class ProbeExecutor:
                     return score(params, finals, los, his, ulo, uhi, uscale,
                                  alphas, targets)
 
+        if axis is not None:
+            batched = self._sharded(batched, axis)
         self.compile_counts[skey] = self.compile_counts.get(skey, 0) + 1
         self._c_compiles.inc()
         return batched
+
+    def _sharded(self, batched: Callable, axis: str) -> Callable:
+        """``batched`` split across the mesh's devices: shard ``i`` of the
+        group axis (params and rows together) or of the row axis (every
+        group's params on every device) runs on ``mesh.devices[i]``, and
+        the shards' results are concatenated on the executor's device."""
+        devices = self.mesh.devices
+        n = len(devices)
+        dim = 0 if axis == "group" else 1
+
+        def run(params, *rows):
+            outs = []
+            for i, dev in enumerate(devices):
+                take = lambda a: a.chunk(n, dim)[i].to(dev)  # noqa: E731
+                p_i = tree_map(take if axis == "group"
+                               else (lambda a: a.to(dev)), params)
+                outs.append(batched(p_i, *(take(r) for r in rows)))
+            return tuple(torch.cat([o[j].to(self.device) for o in outs],
+                                   dim=dim) for j in range(3))
+
+        return run
 
     # -- assembly ----------------------------------------------------------
     def _params_to(self, params):
@@ -709,12 +783,12 @@ class ProbeExecutor:
         tr = self.obs.tracer
         with self._lock:
             plan = self._descend_plan(r0, skey)
-            Gp, Rp = self._choose_buckets(base_key, G, R)
+            Gp, Rp, axis = self._choose_buckets(base_key, G, R)
             key = (*base_key, Gp, Rp)
             fn = self._programs.pop(key, None)  # re-insert as newest (LRU)
             if fn is None:
                 tc0 = tr.now()
-                fn = self._build(r0, skey, plan)
+                fn = self._build(r0, skey, plan, axis)
                 if tr.enabled:
                     tr.record_span(
                         "exec.compile", tc0, tr.now(), cat="exec",
@@ -773,6 +847,9 @@ class ProbeExecutor:
                     {**self._labels, "origin": origin}).inc()
             if plan is not None:
                 self._c_fused_dispatches.inc()
+            if axis is not None:
+                self._c_sharded_dispatches.inc()
+                self.last_shard_axis = axis
         return (np.concatenate(outs_x), np.concatenate(outs_f),
                 np.concatenate(outs_feas))
 

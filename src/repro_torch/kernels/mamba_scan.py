@@ -31,6 +31,7 @@ from . import native, ref
 from .platform import (
     LAUNCHES,
     PLAIN_BACKWARD_ON_CUDA,
+    ROUTES,
     launch,
     plain_backward,
     use_kernel,
@@ -123,6 +124,21 @@ def _plain_for_backward(dt, Bt, Ct, xs, A, h0):
                           counts=PLAIN_BACKWARD_ON_CUDA)
 
 
+def _meta(dt, Bt, Ct, xs, A, h0):
+    """The shape-only route on ``meta`` tensors (the dry-run's): the
+    outputs' shapes and dtype, no loop, no storage touched."""
+    B, T, d, n = _check(dt, Bt, Ct, xs, A, h0)
+    ROUTES["mamba_scan:meta"] += 1
+    return xs.new_empty((B, T, d)), xs.new_empty((B, d, n))
+
+
+def _meta_grads(ctx) -> tuple:
+    """The backward's shape-only route on ``meta`` tensors."""
+    return tuple(torch.empty_like(t) if t is not None and need else None
+                 for t, need in zip(ctx.saved_tensors,
+                                    ctx.needs_input_grad))
+
+
 class MambaScan(torch.autograd.Function):
     """``apply(dt, Bt, Ct, xs, A, h0)`` -> ``(y, h_final)``: the kernel on
     CUDA tensors, the plain loop on CPU tensors; the backward differentiates
@@ -134,12 +150,16 @@ class MambaScan(torch.autograd.Function):
         # not in a separate setup_context, which would have apply bind the
         # arguments to forward's signature on every call (the decode path)
         ctx.save_for_backward(dt, Bt, Ct, xs, A, h0)
+        if xs.is_meta:
+            return _meta(dt, Bt, Ct, xs, A, h0)
         if use_kernel(xs):
             return mamba_scan_cuda(dt, Bt, Ct, xs, A, h0)
         return ref.mamba_scan(dt, Bt, Ct, xs, A, h0)
 
     @staticmethod
     def backward(ctx, gy, gh):
+        if gy.is_meta:
+            return _meta_grads(ctx)
         return plain_backward(_plain_for_backward, ctx.saved_tensors,
                               ctx.needs_input_grad, (gy, gh))
 

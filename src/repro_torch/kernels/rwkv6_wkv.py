@@ -35,6 +35,7 @@ from . import native, ref
 from .platform import (
     LAUNCHES,
     PLAIN_BACKWARD_ON_CUDA,
+    ROUTES,
     launch,
     plain_backward,
     sm_count,
@@ -133,6 +134,21 @@ def _plain_for_backward(r, k, v, w, u, S0):
     return ref.rwkv6_wkv(r, k, v, w, u, S0, counts=PLAIN_BACKWARD_ON_CUDA)
 
 
+def _meta(r, k, v, w, u, S0):
+    """The shape-only route on ``meta`` tensors (the dry-run's): the
+    outputs' shapes and dtype, no loop, no storage touched."""
+    B, T, H, dh = _check(r, k, v, w, u, S0)
+    ROUTES["rwkv6_wkv:meta"] += 1
+    return r.new_empty((B, T, H, dh)), r.new_empty((B, H, dh, dh))
+
+
+def _meta_grads(ctx) -> tuple:
+    """The backward's shape-only route on ``meta`` tensors."""
+    return tuple(torch.empty_like(t) if t is not None and need else None
+                 for t, need in zip(ctx.saved_tensors,
+                                    ctx.needs_input_grad))
+
+
 class RWKV6WKV(torch.autograd.Function):
     """``apply(r, k, v, w, u, S0)`` -> ``(y, S_final)``: the kernel on CUDA
     tensors, the plain loop on CPU tensors; the backward differentiates the
@@ -144,12 +160,16 @@ class RWKV6WKV(torch.autograd.Function):
         # not in a separate setup_context, which would have apply bind the
         # arguments to forward's signature on every call (the decode path)
         ctx.save_for_backward(r, k, v, w, u, S0)
+        if r.is_meta:
+            return _meta(r, k, v, w, u, S0)
         if use_kernel(r):
             return rwkv6_wkv_cuda(r, k, v, w, u, S0)
         return ref.rwkv6_wkv(r, k, v, w, u, S0)
 
     @staticmethod
     def backward(ctx, gy, gS):
+        if gy.is_meta:
+            return _meta_grads(ctx)
         return plain_backward(_plain_for_backward, ctx.saved_tensors,
                               ctx.needs_input_grad, (gy, gS))
 

@@ -1,3 +1,2 @@
-"""Launch layer: the serving and training CLIs, execution plans and
-roofline-term extraction (the dry-run and the mesh wait for their
-slice)."""
+"""Launch layer: the serving and training CLIs, execution plans,
+roofline-term extraction, the production mesh and the dry-run."""

@@ -4,16 +4,16 @@ This is where the cluster execution plan (the paper's "job configuration")
 is materialized for the model substrate: FSDP span, expert sharding mode,
 sequence sharding for decode, dtypes, remat.  ``baseline_plan`` is the
 hand-written default; ``repro_torch.planner`` searches this space with
-the paper's Progressive Frontier and returns overrides.  A mesh is any
-object with ``axis_names`` and a ``shape`` mapping (see
-``repro_torch.distributed.sharding``).
+the paper's Progressive Frontier and returns overrides.  A mesh is a
+``DeviceMesh`` or any object with ``axis_names`` and a ``shape`` mapping
+(see ``repro_torch.distributed.sharding``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-from ..distributed import ShardingRules
+from ..distributed import ShardingRules, mesh_sizes
 from ..nn import ArchConfig, ShapeSpec
 
 
@@ -67,13 +67,14 @@ def rules_for(cfg: ArchConfig, shape: ShapeSpec, mesh,
               plan: Plan) -> ShardingRules:
     """The sharding rules of one (arch, shape, mesh) cell under ``plan``."""
     rules = ShardingRules(mesh)
+    model_ways = mesh_sizes(mesh)["model"]
     over: dict[str, tuple] = {}
     if plan.fsdp:
         # fsdp_span="all" (ZeRO-3 over every axis) only composes with
         # pure_dp — under TP the model axis already carries weight dims.
         over["d_model"] = ("data",)
         over["d_model_out"] = ("data",)
-    if cfg.moe is not None and cfg.moe.num_experts % mesh.shape["model"]:
+    if cfg.moe is not None and cfg.moe.num_experts % model_ways:
         # EP impossible (60 or 8 experts on a 16-wide axis): fall back to
         # TP-inside-expert on the expert d_ff dim.
         over["expert"] = ()
@@ -94,7 +95,7 @@ def rules_for(cfg: ArchConfig, shape: ShapeSpec, mesh,
         )
         return rules.with_overrides(**over)
     if (not cfg.attn_free and shape.kind != "decode"
-            and cfg.n_heads % mesh.shape["model"]):
+            and cfg.n_heads % model_ways):
         # heads can't shard the model axis (e.g. musicgen's 24 on 16):
         # run attention batch-parallel across the model axis instead of
         # replicated (§Perf iteration M1) — requires batch % all axes == 0,

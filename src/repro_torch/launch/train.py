@@ -9,8 +9,14 @@ loader -> async checkpointing -> straggler telemetry.  Resumes from the
 latest checkpoint if one exists.  Checkpoints hold ``{"params", "opt"}``
 in the reference's layout (block leaves stacked over units), so either
 package resumes from the other's.  Runs on the card unless ``--device
-cpu``; sharded training (``--model-parallel`` above 1) is ROADMAP Queue 1
-item 6.
+cpu``.
+
+Under a running process group (``torchrun``), the parameters, the Adam
+moments and each batch are sharded over a ``(data, model)`` mesh of its
+ranks (``--model-parallel`` of them on the model axis) and the step runs
+with the sharding rules; every rank draws the same batch and keeps its
+shard.  ``--model-parallel`` above 1 without a group raises; a sharded
+run does not checkpoint.
 """
 
 from __future__ import annotations
@@ -22,9 +28,10 @@ import numpy as np
 
 from ..configs import get_config, get_smoke
 from ..data.lm_data import MarkovCorpus, TokenLoader
+from ..distributed import ShardingRules, shard_tree
 from ..exec import tree_map
 from ..kernels.platform import resolve_device
-from ..nn import init_params
+from ..nn import init_params, param_axes
 from ..nn.convert import stack_blocks, stacked_like, unstack_blocks
 from ..runtime import CheckpointManager, StragglerMonitor
 from ..training import AdamConfig, TrainStepConfig, adam_init, make_train_step
@@ -55,6 +62,24 @@ def restore_train_state(mgr: CheckpointManager, like: dict):
     return _state_layout(stacked, unstack_blocks), manifest
 
 
+def _rules(args):
+    """The sharding rules over the running process group's ranks, or None
+    without one (one device)."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        if args.model_parallel > 1:
+            raise ValueError(
+                f"--model-parallel {args.model_parallel} needs a running "
+                f"process group (torchrun) of a multiple of that many ranks")
+        return None
+    if args.ckpt:
+        raise ValueError("a sharded run does not checkpoint: drop --ckpt")
+    from .mesh import make_host_mesh
+
+    return ShardingRules(make_host_mesh(model=args.model_parallel))
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-4b")
@@ -75,17 +100,18 @@ def main(argv=None) -> dict:
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     if cfg.embed_input:
         raise SystemExit(f"{cfg.name}: stub-frontend arch; use serve driver")
-    if args.model_parallel > 1:
-        raise NotImplementedError(
-            f"--model-parallel {args.model_parallel}: sharded training is "
-            f"ROADMAP Queue 1 item 6")
+    rules = _rules(args)
     dev = resolve_device(args.device)
 
     params = init_params(cfg, seed=args.seed, device=dev)
+    axes = param_axes(cfg)
+    if rules is not None:
+        params = shard_tree(rules, params, axes)
     adam = AdamConfig(lr=args.lr)
     opt = adam_init(params, adam)
     step_fn = make_train_step(
-        cfg, TrainStepConfig(adam=adam, microbatches=args.microbatches))
+        cfg, TrainStepConfig(adam=adam, microbatches=args.microbatches),
+        rules, param_axes=None if rules is None else axes)
 
     corpus = MarkovCorpus(cfg.vocab, seed=args.seed)
     loader = TokenLoader(corpus, args.batch, args.seq, device=dev,
@@ -109,6 +135,9 @@ def main(argv=None) -> dict:
     for step in range(start, args.steps):
         t0 = time.perf_counter()
         batch = next(loader)
+        if rules is not None:
+            batch = shard_tree(rules, batch, {k: ("batch", None)
+                                              for k in batch})
         params, opt, metrics = step_fn(params, opt, batch)
         loss = float(metrics["loss"])
         losses.append(loss)

@@ -15,13 +15,36 @@ reference computes it outside any Pallas kernel.  It writes the new key and
 value into the cache tensors *in place* at ``pos`` and returns them: a
 serving engine keeps one cache per slot, so a write touches only its own
 slot.
+
+Sharding (``rules``; DESIGN.md §5), as the reference constrains it:
+
+* train/prefill — q/k/v projection weights sharded on the fused head dim;
+  activations constrained with query *heads* on the ``model`` axis.  KV
+  heads that cannot shard it fall back to replicated KV activations
+  repeated to H and then sharded (Megatron GQA); KV heads that can keep
+  their own sharding, and the kernel maps the groups of its local heads.
+  The kernel runs on each rank's heads through ``local_map``.
+* decode — the cache is sharded on the *sequence* dim over ``model``
+  (flash-decode); the step's key and value are written into the rank
+  that holds ``pos``.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from ..distributed import (
+    constrain,
+    grad_placements,
+    is_dtensor,
+    logical_spec,
+    placements,
+    split_last,
+)
 from ..kernels import ops
+from ..kernels.flash_attention import flash_attention_plain
 from ..kernels.platform import PLAIN_ON_CUDA, use_kernel
 from .config import ArchConfig
 from .layers import param, rmsnorm, rmsnorm_init, rope
@@ -31,10 +54,10 @@ def attn_init(gen: torch.Generator, cfg: ArchConfig) -> dict:
     D, H, Hk, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     dt = cfg.pdtype()
     p = {
-        "wq": param(gen, (D, H * dh), dt),
-        "wk": param(gen, (D, Hk * dh), dt),
-        "wv": param(gen, (D, Hk * dh), dt),
-        "wo": param(gen, (H * dh, D), dt),
+        "wq": param(gen, (D, H * dh), ("d_model", "heads"), dt),
+        "wk": param(gen, (D, Hk * dh), ("d_model", "kv_fused"), dt),
+        "wv": param(gen, (D, Hk * dh), ("d_model", "kv_fused"), dt),
+        "wo": param(gen, (H * dh, D), ("heads", "d_model_out"), dt),
     }
     if cfg.qk_norm:
         p["q_norm"] = rmsnorm_init(gen, dh, dt)
@@ -47,9 +70,9 @@ def _project_qkv(p, cfg: ArchConfig, x: torch.Tensor,
     """x: (B, S, D) -> q (B,S,H,dh), k/v (B,S,Hk,dh) with RoPE + qk-norm."""
     B, S, _ = x.shape
     H, Hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (x @ p["wq"]).reshape(B, S, H, dh)
-    k = (x @ p["wk"]).reshape(B, S, Hk, dh)
-    v = (x @ p["wv"]).reshape(B, S, Hk, dh)
+    q = split_last(x @ p["wq"], H)
+    k = split_last(x @ p["wk"], Hk)
+    v = split_last(x @ p["wv"], Hk)
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
@@ -59,10 +82,13 @@ def _project_qkv(p, cfg: ArchConfig, x: torch.Tensor,
 
 
 def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
-    """(..., Hk, dh) -> (..., Hk*groups, dh)."""
+    """(..., Hk, dh) -> (..., Hk*groups, dh), each head repeated in place
+    (an expand and a reshape: a DTensor takes both)."""
     if groups == 1:
         return k
-    return torch.repeat_interleave(k, groups, dim=-2)
+    *lead, hk, dh = k.shape
+    return k[..., None, :].expand(*lead, hk, groups, dh).reshape(
+        *lead, hk * groups, dh)
 
 
 # ---------------------------------------------------------------------------
@@ -109,8 +135,75 @@ def _chunked_causal(q, k, v, scale, chunk):
     return torch.cat(outs, dim=1).to(q.dtype)
 
 
-def attention(p, cfg: ArchConfig, x: torch.Tensor, *, return_kv: bool = False,
-              max_seq: int | None = None):
+def _attend(cfg: ArchConfig, q, k, v):
+    """Causal attention of local tensors: the flash wrapper (the kernel on
+    the card; on the host up to ``cfg.attn_chunk`` its plain version),
+    above ``cfg.attn_chunk`` on the host the chunked oracle.  On ``meta``
+    tensors (the dry-run's shapes) the plain computations, whose products
+    the dry-run counts."""
+    if q.is_meta and q.shape[1] <= cfg.attn_chunk:
+        return flash_attention_plain(q, k, v, causal=True)
+    if not q.is_meta and (use_kernel(q) or q.shape[1] <= cfg.attn_chunk):
+        return ops.flash_attention(q, k, v, causal=True)
+    groups = q.shape[2] // k.shape[2]
+    return _chunked_causal(q, _repeat_kv(k, groups), _repeat_kv(v, groups),
+                           cfg.hd ** -0.5, cfg.attn_chunk)
+
+
+def _attend_sharded(cfg: ArchConfig, rules, q, k, v):
+    """:func:`_attend` on each rank's shard of the batch and heads.
+
+    KV keeps its own head sharding where that matches the query heads'
+    (each rank's query heads then read its own KV heads, the groups
+    mapped in the kernel); otherwise KV is whole on the heads and each
+    rank picks the KV head of each of its query heads (the reference's
+    repeat to H, sharded as the query heads)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    q = constrain(q, rules, "attn_batch", None, "heads", None)
+    k = constrain(k, rules, "attn_batch", None, "kv_heads", None)
+    v = constrain(v, rules, "attn_batch", None, "kv_heads", None)
+    mesh = q.device_mesh
+    pl, kv_pl = list(q.placements), list(k.placements)
+    if kv_pl == pl:
+        return local_map(functools.partial(_attend, cfg), out_placements=pl,
+                         in_placements=(pl, pl, pl),
+                         device_mesh=mesh)(q, k, v)
+    groups = cfg.n_heads // cfg.n_kv_heads
+    heads = torch.arange(cfg.n_heads, device=q.to_local().device) // groups
+    idx_pl = placements(mesh, (logical_spec(
+        rules, ("attn_batch", None, "heads", None), tuple(q.shape))[2],))
+    idx = DTensor.from_local(heads, mesh, [Replicate()] * mesh.ndim,
+                             run_check=False).redistribute(mesh, idx_pl)
+
+    def attend(q, k, v, idx):
+        return _attend(cfg, q, k.index_select(2, idx),
+                       v.index_select(2, idx))
+
+    kv_grad = grad_placements(kv_pl, pl)
+    return local_map(attend, out_placements=pl,
+                     in_placements=(pl, kv_pl, kv_pl, idx_pl),
+                     in_grad_placements=(pl, kv_grad, kv_grad, idx_pl),
+                     device_mesh=mesh)(q, k, v, idx)
+
+
+def _pad_seq(a: torch.Tensor, pad: int) -> torch.Tensor:
+    """(B, S, Hk, dh) zero-padded to S + pad on the sequence dim (on each
+    rank's shard when ``a`` is a DTensor: the sequence dim is whole)."""
+    f = lambda t: torch.nn.functional.pad(  # noqa: E731
+        t, (0, 0, 0, 0, 0, pad))
+    if not is_dtensor(a):
+        return f(a)
+    from torch.distributed.tensor.experimental import local_map
+
+    pl = list(a.placements)
+    return local_map(f, out_placements=pl, in_placements=(pl,),
+                     device_mesh=a.device_mesh)(a)
+
+
+def attention(p, cfg: ArchConfig, x: torch.Tensor, rules=None, *,
+              return_kv: bool = False, max_seq: int | None = None):
     """Full-sequence causal attention (training / prefill).
 
     With ``return_kv`` also returns the (k, v) cache tensors padded to
@@ -120,15 +213,12 @@ def attention(p, cfg: ArchConfig, x: torch.Tensor, *, return_kv: bool = False,
     q, k, v = _project_qkv(p, cfg, x, positions)
     if return_kv:
         pad = (max_seq or S) - S
-        kv_pad = lambda a: torch.nn.functional.pad(  # noqa: E731
-            a.to(cfg.cdtype()), (0, 0, 0, 0, 0, pad))
-        kv_cache = (kv_pad(k), kv_pad(v))
-    if use_kernel(q) or S <= cfg.attn_chunk:
-        o = ops.flash_attention(q, k, v, causal=True)
+        kv_cache = (_pad_seq(k.to(cfg.cdtype()), pad),
+                    _pad_seq(v.to(cfg.cdtype()), pad))
+    if rules is not None and is_dtensor(q):
+        o = _attend_sharded(cfg, rules, q, k, v)
     else:
-        groups = cfg.n_heads // cfg.n_kv_heads
-        o = _chunked_causal(q, _repeat_kv(k, groups), _repeat_kv(v, groups),
-                            cfg.hd ** -0.5, cfg.attn_chunk)
+        o = _attend(cfg, q, k, v)
     out = o.reshape(B, S, cfg.n_heads * cfg.hd) @ p["wo"]
     if return_kv:
         return out, kv_cache
@@ -141,35 +231,68 @@ def attention(p, cfg: ArchConfig, x: torch.Tensor, *, return_kv: bool = False,
 
 
 def init_layer_cache(cfg: ArchConfig, batch: int, max_seq: int,
-                     device) -> dict:
+                     make) -> dict:
+    """The layer's k/v cache, each leaf ``make(shape, dtype, axes)``."""
     shape = (batch, max_seq, cfg.n_kv_heads, cfg.hd)
+    axes = ("batch", "seq_shard", None, None)
     dt = cfg.cdtype()
-    return {"k": torch.zeros(shape, dtype=dt, device=device),
-            "v": torch.zeros(shape, dtype=dt, device=device)}
+    return {"k": make(shape, dt, axes), "v": make(shape, dt, axes)}
+
+
+def _write_pos(cache: torch.Tensor, pos: int, new: torch.Tensor) -> None:
+    """``cache[:, pos] = new[:, 0]`` in place.  For a DTensor cache the
+    rank whose sequence shard holds ``pos`` writes its rows of ``new``
+    (laid out as the cache's batch, whole on the sequence dim)."""
+    if not is_dtensor(cache):
+        cache[:, pos] = new[:, 0].to(cache.dtype)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset,
+    )
+
+    pl = [Replicate() if p == Shard(1) else p for p in cache.placements]
+    new = new.redistribute(cache.device_mesh, pl)
+    shape, offset = compute_local_shape_and_global_offset(
+        cache.shape, cache.device_mesh, cache.placements)
+    i = pos - offset[1]
+    if 0 <= i < shape[1]:
+        cache.to_local()[:, i] = new.to_local()[:, 0].to(cache.dtype)
 
 
 def decode_attention(p, cfg: ArchConfig, x: torch.Tensor, cache: dict,
-                     pos: int):
-    """One decode step. x: (B, 1, D); cache k/v: (B, Smax, Hk, dh), written
-    in place at ``pos``. Returns (out (B,1,D), the cache)."""
+                     pos: int, rules=None):
+    """One decode step. x: (B, 1, D); cache k/v: (B, Smax, Hk, dh) sharded
+    on seq over ``model``, written in place at ``pos``. Returns (out
+    (B,1,D), the cache)."""
     B = x.shape[0]
     H, Hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     positions = torch.full((B, 1), int(pos), dtype=torch.int32,
                            device=x.device)
     q, k_new, v_new = _project_qkv(p, cfg, x, positions)
+    # Per-token activations are tiny: replicate them over the model axis
+    # (which carries the cache *sequence* shards) so the attention einsums
+    # contract locally (flash-decode).
+    q = constrain(q, rules, "batch", None, None, None)
+    k_new = constrain(k_new, rules, "batch", None, None, None)
+    v_new = constrain(v_new, rules, "batch", None, None, None)
     ck, cv = cache["k"], cache["v"]
-    ck[:, pos] = k_new[:, 0].to(ck.dtype)
-    cv[:, pos] = v_new[:, 0].to(cv.dtype)
+    _write_pos(ck, pos, k_new)
+    _write_pos(cv, pos, v_new)
+    ck = constrain(ck, rules, "batch", "seq_shard", None, None)
+    cv = constrain(cv, rules, "batch", "seq_shard", None, None)
     Smax = ck.shape[1]
     # GQA without repeat: fold q heads into (Hk, G) so the contraction runs
     # directly against the Hk-headed cache (no cache-sized broadcast).
     G = H // Hk
     qg = q.reshape(B, Hk, G, dh)  # (B, Hk, G, dh) from (B, 1, H, dh)
     scores = torch.einsum("bkgd,bskd->bkgs", qg, ck.to(qg.dtype))
-    scores = scores.float() * (dh ** -0.5)
+    scores = constrain(scores.float() * (dh ** -0.5), rules, "batch", None,
+                       None, "seq_shard")
     valid = torch.arange(Smax, device=x.device)[None, None, None, :] <= pos
     scores = scores.masked_fill(~valid, float("-inf"))
     probs = torch.softmax(scores, dim=-1)
     o = torch.einsum("bkgs,bskd->bkgd", probs.to(ck.dtype), cv)
+    o = constrain(o, rules, "batch", None, None, None)
     out = o.reshape(B, 1, H * dh) @ p["wo"]
     return out, {"k": ck, "v": cv}

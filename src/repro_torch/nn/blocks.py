@@ -11,7 +11,9 @@ Parameters and caches are lists over scan units (``scan_length(cfg)`` of
 them), each a dict ``{"l0": ..., }`` over the unit's layer plan — the
 reference's stacked leaves, one list entry per leading index
 (``nn.convert`` maps one onto the other).  A plain Python loop over the
-units replaces ``lax.scan``; remat belongs to training.
+units replaces ``lax.scan``; remat belongs to training.  The logical-axes
+trees (``model.param_axes``, ``blocks_cache_axes``) have the same layout,
+each leaf's axes without the reference's leading ``"layers"``.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from typing import Any
 
 import torch
 
+from ..distributed import constrain
 from .attention import attention, attn_init, decode_attention, init_layer_cache
 from .config import ArchConfig
 from .layers import mlp, mlp_init, rmsnorm, rmsnorm_init
@@ -96,86 +99,96 @@ def _layer_init(gen: torch.Generator, cfg: ArchConfig, mixer: str,
 
 
 def _layer_cache_init(cfg: ArchConfig, mixer: str, ffn: str, batch: int,
-                      max_seq: int, device) -> dict:
-    """Per-layer decode cache."""
-    zeros = lambda s, d: torch.zeros(s, dtype=d, device=device)  # noqa: E731
+                      max_seq: int, make) -> dict:
+    """Per-layer decode cache, each leaf ``make(shape, dtype, axes)``."""
     extra = {}
     if ffn == "moe":
         # per-expert loads of the current dispatch chunk: incremental decode
         # reproduces the full pass's capacity drops (see nn/moe.py)
-        extra["moe_counts"] = zeros((batch, cfg.moe.num_experts),
-                                    torch.int32)
+        extra["moe_counts"] = make((batch, cfg.moe.num_experts),
+                                   torch.int32, ("batch", None))
     if mixer == "attn":
-        return {**init_layer_cache(cfg, batch, max_seq, device), **extra}
+        return {**init_layer_cache(cfg, batch, max_seq, make), **extra}
     if mixer == "mamba":
         m = cfg.hybrid.mamba
         din = m.expand * cfg.d_model
-        return {"h": zeros((batch, din, m.d_state), torch.float32),
-                "conv": zeros((batch, m.d_conv - 1, din), cfg.cdtype()),
+        return {"h": make((batch, din, m.d_state), torch.float32,
+                          ("batch", "d_inner", "d_state")),
+                "conv": make((batch, m.d_conv - 1, din), cfg.cdtype(),
+                             ("batch", None, "d_inner")),
                 **extra}
     if mixer == "rwkv":
         r = cfg.rwkv
         H, dh = cfg.d_model // r.head_size, r.head_size
-        return {"S": zeros((batch, H, dh, dh), torch.float32),
-                "x_tm": zeros((batch, cfg.d_model), cfg.cdtype()),
-                "x_cm": zeros((batch, cfg.d_model), cfg.cdtype()), **extra}
+        row = ("batch", None)
+        return {"S": make((batch, H, dh, dh), torch.float32,
+                          ("batch", "rwkv_heads", None, None)),
+                "x_tm": make((batch, cfg.d_model), cfg.cdtype(), row),
+                "x_cm": make((batch, cfg.d_model), cfg.cdtype(), row),
+                **extra}
     raise ValueError(mixer)
 
 
-def _apply_mixer(p, cfg: ArchConfig, mixer: str, x, mode, cache, pos,
+def _apply_mixer(p, cfg: ArchConfig, mixer: str, x, rules, mode, cache, pos,
                  max_seq):
     """Returns (y, new_cache)."""
     if mixer == "attn":
         if mode == "decode":
-            return decode_attention(p["attn"], cfg, x, cache, pos)
+            return decode_attention(p["attn"], cfg, x, cache, pos, rules)
         if mode == "prefill":
-            y, (k, v) = attention(p["attn"], cfg, x, return_kv=True,
+            y, (k, v) = attention(p["attn"], cfg, x, rules, return_kv=True,
                                   max_seq=max_seq)
             return y, {"k": k, "v": v}
-        return attention(p["attn"], cfg, x), None
+        return attention(p["attn"], cfg, x, rules), None
     if mixer == "mamba":
         st = (cache["h"], cache["conv"]) if cache is not None else None
-        y, (h, conv) = mamba(p["mamba"], cfg, cfg.hybrid.mamba, x, st)
+        y, (h, conv) = mamba(p["mamba"], cfg, cfg.hybrid.mamba, x, st, rules)
         new = {"h": h, "conv": conv} if mode != "train" else None
         return y, new
     if mixer == "rwkv":
         st = (cache["S"], cache["x_tm"]) if cache is not None else None
-        y, (S, x_tm) = rwkv_time_mix(p["time_mix"], cfg, cfg.rwkv, x, st)
+        y, (S, x_tm) = rwkv_time_mix(p["time_mix"], cfg, cfg.rwkv, x, st,
+                                     rules)
         new = {"S": S, "x_tm": x_tm} if mode != "train" else None
         return y, new
     raise ValueError(mixer)
 
 
-def _apply_ffn(p, cfg: ArchConfig, ffn: str, x, mode, cache, pos):
+def _apply_ffn(p, cfg: ArchConfig, ffn: str, x, rules, mode, cache, pos):
     """Returns (y, extra_cache_updates or {})."""
     if ffn == "mlp":
-        return mlp(p["mlp"], x, cfg.activation), {}
+        return mlp(p["mlp"], x, cfg.activation, rules), {}
     if ffn == "moe":
         if mode == "train":
-            return moe(p["moe"], cfg, cfg.moe, x), {}
+            return moe(p["moe"], cfg, cfg.moe, x, rules), {}
         counts = (cache.get("moe_counts")
                   if mode == "decode" and cache is not None else None)
-        y, new_counts = moe(p["moe"], cfg, cfg.moe, x, counts=counts,
+        y, new_counts = moe(p["moe"], cfg, cfg.moe, x, rules, counts=counts,
                             pos=pos, return_counts=True)
         return y, {"moe_counts": new_counts}
     if ffn == "rwkv_cm":
         prev = cache.get("x_cm") if cache is not None else None
-        y, x_cm = rwkv_channel_mix(p["channel_mix"], cfg, x, prev)
+        y, x_cm = rwkv_channel_mix(p["channel_mix"], cfg, x, prev, rules)
         return y, ({"x_cm": x_cm} if mode != "train" else {})
     raise ValueError(ffn)
 
 
 def layer_apply(p, cfg: ArchConfig, mixer: str, ffn: str, x, mode, cache,
-                pos, max_seq):
-    """One pre-norm residual layer. Returns (x', new_cache)."""
+                pos, max_seq, rules=None):
+    """One pre-norm residual layer. Returns (x', new_cache).
+
+    With rules, each branch's output is laid out as the residual stream
+    (``"batch", None, "embed"``) before it is added: a row-parallel
+    product's partial sums are reduced there, and the stream never drifts
+    into another layout."""
     h, new_cache = _apply_mixer(
-        p, cfg, mixer, rmsnorm(p["norm1"], x, cfg.norm_eps), mode, cache,
-        pos, max_seq)
-    x = x + h
+        p, cfg, mixer, rmsnorm(p["norm1"], x, cfg.norm_eps), rules, mode,
+        cache, pos, max_seq)
+    x = x + constrain(h, rules, "batch", None, "embed")
     h, cm_cache = _apply_ffn(
-        p, cfg, ffn, rmsnorm(p["norm2"], x, cfg.norm_eps), mode, cache,
-        pos)
-    x = x + h
+        p, cfg, ffn, rmsnorm(p["norm2"], x, cfg.norm_eps), rules, mode,
+        cache, pos)
+    x = x + constrain(h, rules, "batch", None, "embed")
     if new_cache is not None and cm_cache:
         new_cache = {**new_cache, **cm_cache}
     elif cm_cache:
@@ -195,17 +208,28 @@ def blocks_init(gen: torch.Generator, cfg: ArchConfig) -> list:
             for _ in range(scan_length(cfg))]
 
 
-def blocks_cache_init(cfg: ArchConfig, batch: int, max_seq: int,
-                      device) -> list:
+def _cache_tree(cfg: ArchConfig, batch: int, max_seq: int, make) -> list:
     plan = layer_plan(cfg)
     return [{f"l{i}": _layer_cache_init(cfg, mixer, ffn, batch, max_seq,
-                                        device)
+                                        make)
              for i, (mixer, ffn) in enumerate(plan)}
             for _ in range(scan_length(cfg))]
 
 
-def blocks_apply(block_params: list, cfg: ArchConfig, x, mode="train",
-                 cache=None, pos=None, max_seq=None):
+def blocks_cache_init(cfg: ArchConfig, batch: int, max_seq: int,
+                      device) -> list:
+    """The zero decode cache of every layer on ``device``."""
+    return _cache_tree(cfg, batch, max_seq, lambda s, d, _: torch.zeros(
+        s, dtype=d, device=device))
+
+
+def blocks_cache_axes(cfg: ArchConfig, batch: int, max_seq: int) -> list:
+    """The decode cache's logical-axes tree (one tuple a leaf)."""
+    return _cache_tree(cfg, batch, max_seq, lambda s, d, axes: axes)
+
+
+def blocks_apply(block_params: list, cfg: ArchConfig, x, rules=None,
+                 mode="train", cache=None, pos=None, max_seq=None):
     """Run all layers. Returns (x, new cache list or None)."""
     plan = layer_plan(cfg)
     caches = []
@@ -215,7 +239,7 @@ def blocks_apply(block_params: list, cfg: ArchConfig, x, mode="train",
         for i, (mixer, ffn) in enumerate(plan):
             c = unit_c[f"l{i}"] if unit_c is not None else None
             x, nc = layer_apply(unit_p[f"l{i}"], cfg, mixer, ffn, x, mode, c,
-                                pos, max_seq)
+                                pos, max_seq, rules)
             if nc is not None:
                 new_unit[f"l{i}"] = nc
         caches.append(new_unit or None)

@@ -1,11 +1,13 @@
 """Primitive layers + parameter init.
 
-Parameters are nested dicts of tensors (the reference's ``PV`` leaves
-without their logical sharding axes, which wait for the distribution
-slice).  Every random parameter is drawn from an explicit
-``torch.Generator`` on the device the parameters live on, in the order the
-reference draws them; the draws differ from ``jax.random``'s by design, so
-parity tests carry the reference's weights across (``nn.convert``).
+Parameters are nested dicts of tensors.  Each ``param`` call names its
+logical sharding axes, as the reference's ``PV`` leaves carry them; the
+axes are not stored beside the values but built as a tree of their own
+(``nn.param_axes``, through :class:`AxesGen`).  Every random parameter is
+drawn from an explicit ``torch.Generator`` on the device the parameters
+live on, in the order the reference draws them; the draws differ from
+``jax.random``'s by design, so parity tests carry the reference's weights
+across (``nn.convert``).
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from ..distributed import constrain
 
 
 class MetaGen:
@@ -22,13 +26,25 @@ class MetaGen:
     device = torch.device("meta")
 
 
-def param(gen: torch.Generator, shape: tuple, dtype: torch.dtype,
-          init: str = "normal", scale: float | None = None) -> torch.Tensor:
+class AxesGen:
+    """Stands in for a ``torch.Generator`` where only the parameters'
+    logical axes are wanted (``nn.model.param_axes``): each ``param`` call
+    gives its axes tuple."""
+
+
+def param(gen: torch.Generator, shape: tuple, axes: tuple,
+          dtype: torch.dtype, init: str = "normal",
+          scale: float | None = None) -> torch.Tensor:
     """One parameter on ``gen``'s device: ``normal`` (std ``1/sqrt(fan_in)``
     unless ``scale``), ``uniform`` in ``[-scale, scale]`` (default 1),
     ``zeros`` or ``ones``; random draws are float32, then cast.  On the
     ``meta`` device (``gen`` a :class:`MetaGen`) every kind is an empty
-    tensor of the shape and dtype, which allocates nothing."""
+    tensor of the shape and dtype, which allocates nothing.  ``axes`` names
+    each dimension's logical axis; with ``gen`` an :class:`AxesGen` they
+    are what is returned."""
+    assert len(shape) == len(axes), (shape, axes)
+    if isinstance(gen, AxesGen):
+        return tuple(axes)
     dev = gen.device
     if dev.type == "meta":
         return torch.empty(shape, dtype=dtype, device=dev)
@@ -55,7 +71,7 @@ def param(gen: torch.Generator, shape: tuple, dtype: torch.dtype,
 
 
 def rmsnorm_init(gen: torch.Generator, dim: int, dtype) -> dict:
-    return {"scale": param(gen, (dim,), dtype, init="ones")}
+    return {"scale": param(gen, (dim,), (None,), dtype, init="ones")}
 
 
 def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -121,14 +137,16 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 def mlp_init(gen: torch.Generator, d: int, f: int, activation: str,
              dtype) -> dict:
-    p = {"w1": param(gen, (d, f), dtype)}
+    w_axes = ("d_model", "d_ff")
+    p = {"w1": param(gen, (d, f), w_axes, dtype)}
     if activation == "swiglu":
-        p["w3"] = param(gen, (d, f), dtype)
-    p["w2"] = param(gen, (f, d), dtype)
+        p["w3"] = param(gen, (d, f), w_axes, dtype)
+    p["w2"] = param(gen, (f, d), ("d_ff", "d_model_out"), dtype)
     return p
 
 
-def mlp(p: dict, x: torch.Tensor, activation: str) -> torch.Tensor:
+def mlp(p: dict, x: torch.Tensor, activation: str,
+        rules=None) -> torch.Tensor:
     """SwiGLU or (tanh-approximated, as ``jax.nn.gelu``) GELU MLP."""
     if activation == "swiglu":
         h = silu(x @ p["w1"]) * (x @ p["w3"])
@@ -136,6 +154,7 @@ def mlp(p: dict, x: torch.Tensor, activation: str) -> torch.Tensor:
         h = gelu(x @ p["w1"])
     else:
         raise ValueError(activation)
+    h = constrain(h, rules, "batch", None, "act_ff")
     return h @ p["w2"]
 
 
@@ -145,15 +164,20 @@ def mlp(p: dict, x: torch.Tensor, activation: str) -> torch.Tensor:
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int, dtype) -> dict:
-    return {"tok": param(gen, (vocab, d), dtype, scale=0.02)}
+    return {"tok": param(gen, (vocab, d), ("vocab", "d_model"), dtype,
+                         scale=0.02)}
 
 
-def embed(p: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return p["tok"][tokens]
+def embed(p: dict, tokens: torch.Tensor, rules=None) -> torch.Tensor:
+    """The rows of ``p["tok"]`` at ``tokens``.  A table sharded on the
+    vocab is gathered whole on that dim first: DTensor's vocab-parallel
+    gather leaves a masked partial sum whose backward it cannot take."""
+    w = constrain(p["tok"], rules, None, "d_model")
+    return torch.nn.functional.embedding(tokens, w)
 
 
 def unembed_init(gen: torch.Generator, d: int, vocab: int, dtype) -> dict:
-    return {"w": param(gen, (d, vocab), dtype)}
+    return {"w": param(gen, (d, vocab), ("d_model", "vocab"), dtype)}
 
 
 def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:

@@ -23,12 +23,25 @@ Capacity semantics (decode/prefill parity), kept from the reference:
 Incremental decode carries per-expert usage ``counts (B, E)`` in the layer
 cache (reset every ``group_size`` tokens — the full pass's chunk boundary)
 and reproduces the full pass's drops exactly.
+
+Sharding (``rules``): dispatch groups never span batch rows, so each rank
+runs the layer on its own rows through ``local_map``, with the expert
+weights gathered whole (the routing's sort, cumulative sum and scatters
+have no DTensor rules).  The reference's expert parallelism (experts on
+the model axis, an all-to-all each way) is not reproduced: the weights'
+all-gather takes its place on the wire.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..distributed import (
+    grad_placements,
+    is_dtensor,
+    logical_spec,
+    placements,
+)
 from .config import ArchConfig, MoEConfig
 from .layers import gelu, param, sigmoid, silu
 
@@ -37,19 +50,24 @@ def moe_init(gen: torch.Generator, cfg: ArchConfig, m: MoEConfig) -> dict:
     D, Fe, E = cfg.d_model, m.expert_d_ff, m.num_experts
     dt = cfg.pdtype()
     glu = cfg.activation == "swiglu"
+    w_in = ("expert", "d_model", "expert_ff")
     p = {
-        "router": param(gen, (D, E), dt),
-        "w1": param(gen, (E, D, Fe), dt),
-        "w2": param(gen, (E, Fe, D), dt),
+        "router": param(gen, (D, E), ("d_model", None), dt),
+        "w1": param(gen, (E, D, Fe), w_in, dt),
+        "w2": param(gen, (E, Fe, D), ("expert", "expert_ff", "d_model_out"),
+                    dt),
     }
     if glu:
-        p["w3"] = param(gen, (E, D, Fe), dt)
+        p["w3"] = param(gen, (E, D, Fe), w_in, dt)
     if m.shared_d_ff:
-        p["shared_w1"] = param(gen, (D, m.shared_d_ff), dt)
-        p["shared_w2"] = param(gen, (m.shared_d_ff, D), dt)
+        p["shared_w1"] = param(gen, (D, m.shared_d_ff), ("d_model", "d_ff"),
+                               dt)
+        p["shared_w2"] = param(gen, (m.shared_d_ff, D),
+                               ("d_ff", "d_model_out"), dt)
         if glu:
-            p["shared_w3"] = param(gen, (D, m.shared_d_ff), dt)
-        p["shared_gate"] = param(gen, (D, 1), dt)
+            p["shared_w3"] = param(gen, (D, m.shared_d_ff),
+                                   ("d_model", "d_ff"), dt)
+        p["shared_gate"] = param(gen, (D, 1), ("d_model", None), dt)
     return p
 
 
@@ -129,9 +147,43 @@ def _gather_dispatch(xt, gates, oh, capacity: int,
     return expert_in, combine, loads
 
 
+def _moe_sharded(p: dict, cfg: ArchConfig, m: MoEConfig, x, rules, counts,
+                 pos, return_counts: bool):
+    """:func:`moe` on each rank's batch rows, the weights whole."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    
+    mesh = x.device_mesh
+    spec = logical_spec(rules, ("batch", None, None), tuple(x.shape))
+    x_pl = placements(mesh, spec)
+    c_pl = placements(mesh, (spec[0], None))
+    rep = [Replicate() for _ in x_pl]
+    names = sorted(p)
+    args = [x.redistribute(mesh, x_pl)]
+    args += [p[k].redistribute(mesh, rep) for k in names]
+    in_pl = [x_pl] + [rep] * len(names)
+    grads = [x_pl] + [grad_placements(rep, x_pl)] * len(names)
+    if counts is not None:
+        args.append(counts.redistribute(mesh, c_pl))
+        in_pl.append(c_pl)
+        grads.append(c_pl)
+
+    def local(x_l, *rest):
+        p_l = dict(zip(names, rest))
+        c_l = rest[len(names)] if counts is not None else None
+        return moe(p_l, cfg, m, x_l, counts=c_l, pos=pos,
+                   return_counts=return_counts)
+
+    return local_map(local, out_placements=(x_pl, c_pl) if return_counts
+                     else x_pl, in_placements=tuple(in_pl),
+                     in_grad_placements=tuple(grads),
+                     device_mesh=mesh)(*args)
+
+
 def moe(p: dict, cfg: ArchConfig, m: MoEConfig, x: torch.Tensor,
-        counts: torch.Tensor | None = None, pos: int | None = None,
-        return_counts: bool = False):
+        rules=None, counts: torch.Tensor | None = None,
+        pos: int | None = None, return_counts: bool = False):
     """x: (B, S, D) -> (B, S, D), or ``(y, counts)`` with
     ``return_counts=True``.
 
@@ -140,6 +192,8 @@ def moe(p: dict, cfg: ArchConfig, m: MoEConfig, x: torch.Tensor,
     reset the loads at ``group_size`` chunk boundaries.  The returned
     counts are the loads after this call's last chunk, ready to cache.
     """
+    if rules is not None and is_dtensor(x):
+        return _moe_sharded(p, cfg, m, x, rules, counts, pos, return_counts)
     B, S, D = x.shape
     # Per-row groups: a dispatch group never spans batch rows, so decode
     # (one group per row) and the full pass agree on group membership.

@@ -162,6 +162,7 @@ class MOOService:
         max_cached_tasks: int = 512,
         use_kernel: bool = False,
         executor: ProbeExecutor | None = None,
+        mesh="auto",
         structure_coalescing: bool = True,
         vault=None,
         vault_autosave_probes: int = 64,
@@ -184,8 +185,12 @@ class MOOService:
         # The service's dispatch plane (DESIGN.md §10): ALL MOGD work of
         # every session goes through this one executor, so built programs
         # — and their build-count telemetry — are shared service-wide.
+        # ``mesh="auto"`` (default) shards the probe batch axis whenever
+        # more than one CUDA device exists — no opt-in; pass mesh=None to
+        # disable, or a ``distributed.ProbeMesh`` to pin the devices.
         self.executor = (executor if executor is not None
-                         else ProbeExecutor(obs=self.obs, device=self.device))
+                         else ProbeExecutor(mesh=mesh, obs=self.obs,
+                                            device=self.device))
         if self.executor.device != self.device:
             raise ValueError(f"executor runs on {self.executor.device}, "
                              f"service on {self.device}")

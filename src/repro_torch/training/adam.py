@@ -40,8 +40,9 @@ def adam_init(params, cfg: AdamConfig) -> dict:
     """Zero moments in ``cfg.state_dtype`` beside each parameter, and an
     int32 0-d step ``count``."""
     dt = cfg.sdtype()
-    zeros = lambda p: torch.zeros(p.shape, dtype=dt,  # noqa: E731
-                                  device=p.device)
+    # zeros_like keeps a DTensor parameter's mesh and placements
+    zeros = lambda p: torch.zeros_like(  # noqa: E731
+        p, dtype=dt, memory_format=torch.contiguous_format)
     device = next(tree_leaves(params)).device
     return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params),
             "count": torch.zeros((), dtype=torch.int32, device=device)}

@@ -5,21 +5,25 @@ Gradients are taken with respect to the parameters cast once to the
 model's compute dtype (``cfg.cdtype()``), as the reference's ``grads_of``
 does; the forward's mixers run the hand-written flash, WKV and scan
 kernels on the card, and their backward recomputes through the plain
-versions (``kernels.platform.plain_backward``).  Sharded training is not
-ported yet (ROADMAP Queue 1 item 6): ``rules`` over a one-device mesh is
-accepted, and with ``param_axes`` casts the gradients to
-``grad_reduce_dtype``, as the reference's pin does there; a larger mesh
-raises.
+versions (``kernels.platform.plain_backward``).
+
+Sharded training: with ``rules`` the parameters, the moments and the
+batch are DTensors on ``rules.mesh`` (``distributed.shard_tree``), the
+loss runs with the reference's activation constraints, and Adam runs on
+the DTensors.  With ``param_axes`` too, the gradients are pinned to the
+parameters' placements in ``grad_reduce_dtype`` right at the backward's
+output, as the reference's ``constrain_grads``.  The new parameters and
+moments come back in the placements they came in.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Callable
 
 import torch
 
+from ..distributed import is_dtensor, sharded_region
 from ..exec import tree_map
 from ..nn import ArchConfig, loss_fn
 from ..nn.model import tree_leaves
@@ -52,12 +56,15 @@ def _rebuild(tree, leaves):
     return tree_map(lambda _: next(it), tree)
 
 
-def _mesh_devices(mesh) -> int:
-    return math.prod(dict(mesh.shape).values())
+def _like(new, old):
+    """``new`` in ``old``'s placements where ``old`` is a DTensor."""
+    if is_dtensor(old):
+        return new.redistribute(old.device_mesh, old.placements)
+    return new
 
 
 def grads_of(params, cfg: ArchConfig, batch,
-             note: Callable[[str], None] = lambda _: None):
+             note: Callable[[str], None] = lambda _: None, rules=None):
     """(gradients, metrics) of ``loss_fn`` with respect to the parameters
     cast once to ``cfg.cdtype()`` (the gradients in that dtype, an integer
     leaf's as zeros), the metrics detached.  ``note("forward")`` and
@@ -66,7 +73,7 @@ def grads_of(params, cfg: ArchConfig, batch,
     leaves = [p.detach().to(cdt) if p.is_floating_point() else p.detach()
               for p in tree_leaves(params)]
     wrt = [p.requires_grad_() for p in leaves if p.is_floating_point()]
-    loss, metrics = loss_fn(_rebuild(params, leaves), cfg, batch)
+    loss, metrics = loss_fn(_rebuild(params, leaves), cfg, batch, rules)
     note("forward")
     got = iter(torch.autograd.grad(loss, wrt, allow_unused=True))
     grads = [(next(got) if p.is_floating_point() else None) for p in leaves]
@@ -88,29 +95,36 @@ def make_train_step(cfg: ArchConfig, ts: TrainStepConfig = TrainStepConfig(),
     events): called with ``"forward"`` and ``"backward"`` after each
     microbatch's loss and gradients and with ``"update"`` after Adam.
     """
-    if rules is not None and _mesh_devices(rules.mesh) > 1:
-        raise NotImplementedError(
-            f"a train step over {_mesh_devices(rules.mesh)} devices: "
-            f"sharded training is ROADMAP Queue 1 item 6")
     if ts.compute_dtype not in (None, cfg.compute_dtype):
         raise ValueError(
             f"TrainStepConfig.compute_dtype={ts.compute_dtype!r} but the "
             f"model computes in {cfg.compute_dtype!r}: set the model "
             f"config's compute_dtype")
-    # the reference pins the gradients in grad_reduce_dtype when it is
-    # given both the rules and the parameters' axes; on one device the
-    # pin is the cast alone
+    # the reference pins the gradients to the parameters' sharding in
+    # grad_reduce_dtype when it is given both the rules and their axes
     reduce_dt = (_DTYPES[ts.grad_reduce_dtype]
                  if rules is not None and param_axes is not None else None)
     note = _mark or (lambda _: None)
 
     def grads_in_reduce_dtype(params, batch):
-        grads, metrics = grads_of(params, cfg, batch, note)
+        grads, metrics = grads_of(params, cfg, batch, note, rules)
         if reduce_dt is not None:
-            grads = tree_map(lambda g: g.to(reduce_dt), grads)
+            grads = tree_map(lambda g, p: _like(g.to(reduce_dt), p), grads,
+                             params)
         return grads, metrics
 
     def train_step(params, opt_state, batch):
+        if rules is None:
+            return _step(params, opt_state, batch)
+        with sharded_region(rules):
+            new_params, new_opt, metrics = _step(params, opt_state, batch)
+            new_params = tree_map(_like, new_params, params)
+            new_opt = tree_map(_like, new_opt, opt_state)
+            metrics = {k: v.full_tensor() if is_dtensor(v) else v
+                       for k, v in metrics.items()}
+        return new_params, new_opt, metrics
+
+    def _step(params, opt_state, batch):
         n = ts.microbatches
         if n > 1:
             # split the batch on its leading axis; accumulate in fp32

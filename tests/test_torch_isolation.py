@@ -30,11 +30,13 @@ from repro_torch.core import (
 )
 from repro_torch.core.frontier_store import FrontierStore
 from repro_torch.data.workloads import batch_problem, batch_suite, batch_task
+from repro_torch.distributed import probe_mesh
 from repro_torch.exec import ProbeExecutor, default_executor
 from repro_torch.configs import get_smoke
 from repro_torch.launch import serve, train
 from repro_torch.nn import init_cache, init_params
 from repro_torch.serving import ServeEngine
+from repro_torch.service import MOOService
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -75,7 +77,10 @@ def test_every_module_is_covered():
                  "repro_torch.training", "repro_torch.training.adam",
                  "repro_torch.training.train_step",
                  "repro_torch.data.lm_data", "repro_torch.runtime.straggler",
-                 "repro_torch.runtime.elastic", "repro_torch.launch.train"):
+                 "repro_torch.runtime.elastic", "repro_torch.launch.train",
+                 "repro_torch.distributed.sharding",
+                 "repro_torch.distributed.collectives",
+                 "repro_torch.launch.mesh", "repro_torch.launch.dryrun"):
         assert want in mods
 
 
@@ -87,9 +92,12 @@ sys.path.insert(0, {str(ROOT)!r})
 for name in {_port_modules()!r}:
     importlib.import_module(name)
 import chip_smoke  # noqa: F401
+import torch.distributed as dist
 bad = sorted(m for m in sys.modules
              if m == 'jax' or m.startswith(('jax.', 'jaxlib'))
              or m == 'repro' or m.startswith('repro.'))
+if dist.is_available() and dist.is_initialized():
+    bad.append('a process group was started at import')
 print(json.dumps(bad))
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -120,6 +128,7 @@ def no_cuda():
     "init_params", "init_cache", "serve_engine", "launch_serve",
     "init_params_jamba", "init_cache_jamba", "serve_engine_moe",
     "launch_serve_jamba", "launch_train", "launch_train_rwkv",
+    "probe_mesh", "service_mesh",
 ])
 def test_entry_points_default_to_cuda_and_raise_here(no_cuda, entry):
     cpu_problem = as_problem(zdt1_task(d=3, device="cpu"))
@@ -154,6 +163,8 @@ def test_entry_points_default_to_cuda_and_raise_here(no_cuda, entry):
                                             "--steps", "1"]),
         "launch_train_rwkv": lambda: train.main(["--arch", "rwkv6-3b",
                                                  "--smoke", "--steps", "1"]),
+        "probe_mesh": lambda: probe_mesh(),
+        "service_mesh": lambda: MOOService(mesh="auto"),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()

@@ -197,10 +197,17 @@ class TestServiceAgainstReference:
             MOOService()
 
     @pytest.mark.parametrize("kw", [
-        dict(mesh=None), dict(kernel_interpret=True)])
+        dict(kernel_interpret=False), dict(kernel_interpret=True)])
     def test_later_slices_parameters_are_refused(self, kw):
+        # Pallas interpret mode has no torch counterpart: the port routes
+        # by the tensors' device (ROADMAP Queue 3 item 8)
         with pytest.raises(TypeError):
             MOOService(device=CPU, **kw)
+
+    @pytest.mark.parametrize("mesh", [None, "auto"])
+    def test_mesh_parameter_is_accepted(self, mesh):
+        svc = MOOService(device=CPU, mesh=mesh)
+        assert svc.executor.mesh is None  # one host device: unsharded
 
     @pytest.mark.parametrize("kw", [
         dict(vault=None), dict(vault_autosave_probes=8)])
