@@ -1386,9 +1386,8 @@ def check_composed(dag, comp, stage_frontiers, label: str) -> None:
 def phase_service(dev, rounds: int = 3) -> dict:
     """MOOService with the reference's defaults over 258 tenants and two
     DAG jobs; recommendations; then solve_dag at expt5's full size.  Three
-    ``step_all`` rounds (four until the distribution phase was added; a
-    round after the first is ~8.5 s on an H100, and the run's limit is
-    kept with the new phase)."""
+    ``step_all`` rounds: a round after the first is ~8.5 s on an H100, and
+    the whole run has a time limit to keep."""
     import torch
 
     from repro_torch.core import MOGDConfig, solve_dag
