@@ -8,6 +8,11 @@ so a fitted surrogate is directly usable as the Ψ of a plan-space
 MOOProblem (``repro_torch.planner``).  With handfuls of artifacts per cell the
 surrogates are intentionally low-capacity; the analytic calibrated model
 remains the default and the surrogate path demonstrates the decoupling.
+
+An artifact marked ``"expert_parallel": false`` (the port's dry-run of a
+MoE model, which gathers every expert on every rank instead of the
+reference's expert parallelism) measured another plan than the one its
+``plan`` names, so :func:`harvest` leaves it out.
 """
 
 from __future__ import annotations
@@ -60,12 +65,15 @@ def _plan_to_knobs(rec: dict) -> dict:
 def harvest(arch: str, shape: str, directory=None):
     """Rows for one (arch, shape): (X encoded (n, D), Y (n, 3) seconds
     [compute, memory, collective], tags).  ``directory`` overrides the
-    cwd-relative artifact root (``None`` -> ``DRYRUN_DIR``)."""
+    cwd-relative artifact root (``None`` -> ``DRYRUN_DIR``).  Artifacts
+    marked ``"expert_parallel": false`` are left out."""
     directory = _resolve_root(directory)
     enc = SpaceEncoder(plan_space())
     X, Y, tags = [], [], []
     for p in sorted(directory.glob(f"{arch}__{shape}__*.json")):
         rec = json.loads(p.read_text())
+        if rec.get("expert_parallel") is False:
+            continue
         r = rec["roofline"]
         X.append(enc.encode(_plan_to_knobs(rec)))
         Y.append([r["compute_s"], r["memory_s"], r["collective_s"]])

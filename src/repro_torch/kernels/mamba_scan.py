@@ -33,6 +33,7 @@ from .platform import (
     PLAIN_BACKWARD_ON_CUDA,
     ROUTES,
     launch,
+    meta_backward,
     plain_backward,
     use_kernel,
 )
@@ -132,13 +133,6 @@ def _meta(dt, Bt, Ct, xs, A, h0):
     return xs.new_empty((B, T, d)), xs.new_empty((B, d, n))
 
 
-def _meta_grads(ctx) -> tuple:
-    """The backward's shape-only route on ``meta`` tensors."""
-    return tuple(torch.empty_like(t) if t is not None and need else None
-                 for t, need in zip(ctx.saved_tensors,
-                                    ctx.needs_input_grad))
-
-
 class MambaScan(torch.autograd.Function):
     """``apply(dt, Bt, Ct, xs, A, h0)`` -> ``(y, h_final)``: the kernel on
     CUDA tensors, the plain loop on CPU tensors; the backward differentiates
@@ -159,7 +153,7 @@ class MambaScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy, gh):
         if gy.is_meta:
-            return _meta_grads(ctx)
+            return meta_backward(ctx)
         return plain_backward(_plain_for_backward, ctx.saved_tensors,
                               ctx.needs_input_grad, (gy, gh))
 

@@ -162,3 +162,12 @@ def plain_backward(plain, inputs, needs, grad_outputs) -> tuple:
             allow_unused=True) if pairs and wrt else [None] * len(wrt))
     return tuple(next(got) if n and isinstance(t, torch.Tensor) else None
                  for t, n in zip(inputs, needs))
+
+
+def meta_backward(ctx) -> tuple:
+    """A recurrence's backward on ``meta`` tensors (the dry-run's
+    shape-only route): an empty gradient shaped like each saved input
+    whose gradient is needed, None for the others."""
+    return tuple(torch.empty_like(t) if t is not None and need else None
+                 for t, need in zip(ctx.saved_tensors,
+                                    ctx.needs_input_grad))

@@ -37,6 +37,7 @@ from .platform import (
     PLAIN_BACKWARD_ON_CUDA,
     ROUTES,
     launch,
+    meta_backward,
     plain_backward,
     sm_count,
     use_kernel,
@@ -142,13 +143,6 @@ def _meta(r, k, v, w, u, S0):
     return r.new_empty((B, T, H, dh)), r.new_empty((B, H, dh, dh))
 
 
-def _meta_grads(ctx) -> tuple:
-    """The backward's shape-only route on ``meta`` tensors."""
-    return tuple(torch.empty_like(t) if t is not None and need else None
-                 for t, need in zip(ctx.saved_tensors,
-                                    ctx.needs_input_grad))
-
-
 class RWKV6WKV(torch.autograd.Function):
     """``apply(r, k, v, w, u, S0)`` -> ``(y, S_final)``: the kernel on CUDA
     tensors, the plain loop on CPU tensors; the backward differentiates the
@@ -169,7 +163,7 @@ class RWKV6WKV(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy, gS):
         if gy.is_meta:
-            return _meta_grads(ctx)
+            return meta_backward(ctx)
         return plain_backward(_plain_for_backward, ctx.saved_tensors,
                               ctx.needs_input_grad, (gy, gS))
 

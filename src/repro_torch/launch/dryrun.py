@@ -24,7 +24,13 @@ op into local ops and collectives first):
 
 Divergences from the reference: no XLA compile (``compile_s`` is the
 traced run's seconds), and every layer runs, so there is no 1- and
-2-unit extrapolation.  Nothing happens at import.
+2-unit extrapolation.  The MoE layers gather every expert's weights on
+every rank and route each rank's rows locally, where the reference
+shards the experts over the model axis and exchanges tokens with an
+all-to-all each way: the collectives and memory of a MoE cell are not
+the reference plan's.  Its artifact says so (``"expert_parallel":
+false``; ``null`` for a model without experts), and ``data.harvest``
+leaves such artifacts out.  Nothing happens at import.
 
 Usage:
     python -m repro_torch.launch.dryrun --arch qwen3-4b --shape train_4k
@@ -220,6 +226,7 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
         "arch": arch, "shape": shape_name,
         "mesh": "2x16x16" if multi_pod else "16x16",
         "chips": chips,
+        "expert_parallel": None if cfg.moe is None else False,
         "plan": {f: getattr(plan, f) for f in plan.__dataclass_fields__},
         "lower_s": time.perf_counter() - t0,
     }

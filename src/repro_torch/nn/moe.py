@@ -153,7 +153,6 @@ def _moe_sharded(p: dict, cfg: ArchConfig, m: MoEConfig, x, rules, counts,
     from torch.distributed.tensor import Replicate
     from torch.distributed.tensor.experimental import local_map
 
-    
     mesh = x.device_mesh
     spec = logical_spec(rules, ("batch", None, None), tuple(x.shape))
     x_pl = placements(mesh, spec)

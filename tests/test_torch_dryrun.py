@@ -9,6 +9,9 @@ its own fake process group of 256 ranks; this process starts none).
   0's shards, times the chips, are at least ``model_flops_for`` (6 N D)
   and at most 1.5 times it.  The excess is attention's score and value
   products, which 6 N D leaves out: 8.3 % on this cell.
+* One MoE cell (``qwen2-moe-a2.7b`` at ``decode_32k``): marked
+  ``"expert_parallel": false``, which ``data.harvest`` leaves out; a
+  dense cell's artifact carries ``null`` there.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ def _cell(arch: str, shape: str, out) -> dict:
 def test_dryrun_cell_artifact(tmp_path):
     rec = _cell("rwkv6-3b", "decode_32k", tmp_path)
     assert rec["chips"] == 256
+    assert rec["expert_parallel"] is None
     r = rec["roofline"]
     assert r["flops_per_chip"] > 0
     assert r["bottleneck"] in ("compute", "memory", "collective")
@@ -60,3 +64,14 @@ def test_train_cell_counts_model_flops(tmp_path):
     assert want <= got <= 1.5 * want, got / want
     assert rec["collectives"]["wire_bytes_per_chip"] > 0
     assert rec["memory"]["argument_bytes"] > 0
+
+
+def test_moe_cell_is_marked_and_left_out_of_harvest(tmp_path):
+    # the port's MoE gathers every expert on every rank (no expert
+    # parallelism): its artifact says so, and harvest skips it
+    rec = _cell("qwen2-moe-a2.7b", "decode_32k", tmp_path)
+    assert rec["expert_parallel"] is False
+    assert rec["chips"] == 256
+    assert rec["roofline"]["flops_per_chip"] > 0
+    X, Y, tags = harvest("qwen2-moe-a2.7b", "decode_32k", directory=tmp_path)
+    assert X.shape[0] == 0 and Y.shape[0] == 0 and tags == []

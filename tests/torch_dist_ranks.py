@@ -10,10 +10,11 @@ readings to ``DIR/result.json``.
 * mistral-nemo smoke prefill and decode (the GQA fallback: 2 KV heads on a
   4-wide model axis), rwkv6-3b and Jamba smoke prefill (their recurrences
   through ``local_map``), each sharded against unsharded.  Jamba runs
-  twice: in fp32 compute as configured, and in bf16 compute without its
-  MoE layers (bf16 rounding in another order flips top-k routing choices
-  of its MoE layers, which moves its bf16 logits by up to 0.09 of their
-  scale where the dense layers stay at 0.02).
+  three times: in fp32 compute, in bf16 compute without its MoE layers,
+  and in its configured bf16 with them, where the sharded run's bf16
+  rounding in another order flips some top-k routing choices; that run
+  counts the flipped tokens and is repeated with every MoE call's choices
+  pinned to the unsharded run's.
 """
 
 import json
@@ -122,6 +123,84 @@ def check_serving(mesh, arch: str, decode: bool, **over) -> dict:
     return out
 
 
+def check_jamba_routing(mesh) -> dict:
+    """Jamba smoke prefill in its configured bf16 compute with its MoE
+    layers: sharded against unsharded as it runs, then again with every
+    MoE call's top-k choices pinned to the unsharded run's choices for the
+    same rows.  Counts rank 0's routed tokens whose top-k set differs."""
+    from repro_torch.nn import moe as moe_mod
+
+    gating = moe_mod._top_k_gating
+    calls: list = []  # the unsharded run's (logits, choices) a MoE call
+    st = {"mode": "record", "i": 0, "flipped": 0, "routed": 0,
+          "dist": 0.0, "margin": float("inf")}
+
+    def hooked(logits, m):
+        gates, oh = gating(logits, m)
+        if st["mode"] == "record":
+            calls.append((logits.detach().clone(), oh.argmax(-1)))
+            return gates, oh
+        ref_logits, ref_topi = calls[st["i"] % len(calls)]
+        st["i"] += 1
+        # each local dispatch group is one of the unsharded run's groups
+        # (one batch row here): the nearest by its router logits
+        d = (logits[:, None] - ref_logits[None]).abs().amax(dim=(2, 3))
+        near = d.topk(min(2, d.shape[1]), dim=1, largest=False).values
+        dist, match = d.min(dim=1)
+        st["dist"] = max(st["dist"], float(dist.max()))
+        if near.shape[1] > 1:  # how much nearer the match than the next
+            st["margin"] = min(st["margin"], float(
+                (near[:, 1] - near[:, 0]).min()))
+        want = ref_topi[match]  # (g, s, k)
+        if st["mode"] == "compare":
+            got = oh.argmax(-1)
+            differ = (got.sort(-1).values != want.sort(-1).values).any(-1)
+            st["flipped"] += int(differ.sum())
+            st["routed"] += differ.numel()
+            return gates, oh
+        probs = torch.softmax(logits, dim=-1)
+        topv = torch.gather(probs, -1, want)
+        topv = topv / torch.clamp_min(topv.sum(-1, keepdim=True), 1e-9)
+        gates = torch.zeros_like(probs).scatter(-1, want, topv)
+        oh = torch.nn.functional.one_hot(want, logits.shape[-1]).to(
+            probs.dtype)
+        return gates, oh
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.distributed import ShardingRules, shard_tree
+    from repro_torch.nn import init_params, param_axes
+    from repro_torch.serving import make_prefill_step
+
+    cfg = get_smoke("jamba-v0.1-52b")
+    params = init_params(cfg, seed=0, device="cpu")
+    S, B = 24, 2
+    toks = (torch.arange(B * S, dtype=torch.int32).reshape(B, S) * 7) \
+        % cfg.vocab
+    rules = ShardingRules(mesh)
+    params_s = shard_tree(rules, params, param_axes(cfg))
+    toks_s = shard_tree(rules, toks, ("batch", None))
+    moe_mod._top_k_gating = hooked
+    try:
+        lg_ref, _ = make_prefill_step(cfg, max_seq=S + 4)(
+            params, {"tokens": toks})
+        out = {"moe_calls": len(calls)}
+        for mode in ("compare", "pinned"):
+            st["mode"], st["i"] = mode, 0
+            lg_s, _ = make_prefill_step(cfg, rules, max_seq=S + 4)(
+                params_s, {"tokens": toks_s})
+            out[f"{mode}_calls"] = st["i"]
+            out[f"{mode}_max_diff"] = float(
+                (lg_ref.float() - _full(lg_s).float()).abs().max())
+            out[f"{mode}_match_max_dist"] = st["dist"]
+            st["dist"] = 0.0
+    finally:
+        moe_mod._top_k_gating = gating
+    out["prefill_max_diff"] = out.pop("compare_max_diff")
+    return {**out, "logit_scale": float(lg_ref.float().abs().max()),
+            "flipped_tokens": st["flipped"], "routed_tokens": st["routed"],
+            "match_margin": st["margin"]}
+
+
 DRIVER_ARGS = ["--arch", "qwen3-4b", "--smoke", "--steps", "3", "--batch",
                "4", "--seq", "16", "--device", "cpu", "--log-every", "100"]
 
@@ -148,7 +227,8 @@ def main() -> None:
                "jamba_fp32": check_serving(m24, "jamba-v0.1-52b", False,
                                            compute_dtype="float32"),
                "jamba_dense_bf16": check_serving(m24, "jamba-v0.1-52b",
-                                                 False, moe=None)}
+                                                 False, moe=None),
+               "jamba_moe_bf16": check_jamba_routing(m24)}
         if rank == 0:
             with open(os.path.join(d, "result.json"), "w") as f:
                 json.dump(out, f)
