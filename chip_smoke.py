@@ -131,6 +131,18 @@ Phases (any failure exits non-zero; nothing is caught and turned into 0):
    resumed run's losses finite and as many as its steps, the mean of the
    last 10 losses ``DRIVER_MARGIN`` below the first 10's, and the
    launches as above in both runs.
+7c. Distribution: the tenants' structure through probe meshes of the
+   one card, ``compressed_psum`` on a one-rank NCCL group, and on a
+   (1, 1) ``DeviceMesh`` of that group with the sharding rules: qwen3-4b
+   (``DIST_LAYERS`` layers, full width) and the sharded MoE,
+   qwen2-moe-a2.7b (``DIST_LAYERS`` layers, full width) on both routes
+   (``DIST_MOE_ROUTES``: EP, and TP inside the experts) and Jamba
+   (``DIST_JAMBA_LAYERS`` layers, full width, bf16 parameters) on EP.
+   Each train step, prefill and decode is held to the same call without
+   the rules (``DIST_LM_TOL``), each kernel launched once a mixer layer
+   and call and no plain version on the card; the collectives of each
+   sharded call by kind and bytes, the step and call ms with and without
+   the mesh and the peak memory are reported.
 8. Assertions: fused dispatches, no fallbacks, every kernel launched on its
    path, every descend launch of phases 3-5 on the resident route, no JAX
    or ``repro`` module loaded, everything on ``cuda``.
@@ -300,6 +312,22 @@ DIST_BOXES, DIST_ROW_BOXES = 2, 64
 DIST_PROBE_TOL = 1e-5
 DIST_LAYERS = 2
 DIST_LM_TOL = 1e-4
+# and the sharded MoE on the same mesh: qwen2-moe-a2.7b at full width,
+# DIST_LAYERS layers, on both routes of nn.moe (EP under the default rules;
+# TP inside the experts under the override that launch.plans.rules_for sets
+# where the experts do not divide the model axis), and Jamba at full width,
+# the first DIST_JAMBA_LAYERS layers of its period (Mamba; the MoE at 1 and
+# 3; attention at 3) with bf16 parameters, on EP
+DIST_MOE_ROUTES = {"ep": {}, "tp": {"expert": (), "expert_ff": ("model",)}}
+DIST_JAMBA_LAYERS = 4
+# qwen2-moe's steps keep their Adam moments in bf16 (the plans'
+# state_dtype): with fp32 moments a step of its 1.76 B fp32 parameters
+# holds ~60 GB and ran out of the card's memory
+DIST_MOE_STATE = "bfloat16"
+# what the distribution summary line keeps of each sharded model's run
+DIST_SUMMARY = ("train_rel_err", "step_ms", "mesh_overhead",
+                "train_collectives", "rel_err", "ms", "collectives",
+                "peak_gb")
 
 
 def log(*args) -> None:
@@ -3295,111 +3323,262 @@ def _rel(a: float, b: float) -> float:
     return abs(a - b) / max(abs(b), 1e-30)
 
 
-def _sharded_lm(dev) -> dict:
-    """qwen3-4b at full width, ``DIST_LAYERS`` layers, bf16 compute, on a
-    (1, 1) ``("data", "model")`` DeviceMesh with the sharding rules: one
-    train step, a prefill and one decode, each held to the same call
-    without rules (loss, gradient norm and logits at ``DIST_LM_TOL``
-    relative), flash launched through ``local_map`` once a layer and
-    call; the step's milliseconds with and without the mesh."""
-    import numpy as np
+def _one_rank_mesh():
+    """A (1, 1) ``("data", "model")`` DeviceMesh of the running group."""
     import torch
     from torch.distributed.device_mesh import DeviceMesh
 
-    from repro_torch.configs import get_config
-    from repro_torch.distributed import ShardingRules, shard_tree
+    return DeviceMesh("cuda", torch.zeros((1, 1), dtype=torch.int64),
+                      mesh_dim_names=("data", "model"))
+
+
+def _kernels_a_call(cfg, decode: bool) -> dict:
+    """Each kernel's launches a forward of ``cfg``: once a mixer layer
+    (a decode step's attention reads its cache without flash)."""
+    return {name: n for name, n in (
+        ("flash_attention", 0 if decode else _mixer_layers(cfg, "attn")),
+        ("mamba_scan", _mixer_layers(cfg, "mamba")),
+        ("rwkv6_wkv", _mixer_layers(cfg, "rwkv"))) if n}
+
+
+def _check_launches(platform, cfg, label: str, decode: bool) -> dict:
+    """The launches since the last reset: each kernel once a mixer layer,
+    no other, and no plain version on the card."""
+    got = platform.launch_counts()
+    want = _kernels_a_call(cfg, decode)
+    if {k: v for k, v in got.items() if v} != want:
+        fail(f"{label}: launches {got}, want {want}")
+    if platform.plain_on_cuda_counts():
+        fail(f"{label}: plain versions on the card "
+             f"{platform.plain_on_cuda_counts()}")
+    return got
+
+
+def _max_rel(got, want) -> float:
+    got = got.full_tensor().float() if hasattr(got, "full_tensor") \
+        else got.float()
+    want = want.float()
+    return float((got - want).abs().max()
+                 / want.abs().max().clamp_min(1e-30))
+
+
+def _mesh_train(dev, cfg, params, params_s, rules, batch, batch_s, adam,
+                label: str) -> dict:
+    """One train step with the rules against the same step without them
+    (three of each, the first a warm-up): loss and gradient norm within
+    ``DIST_LM_TOL`` relative, the forward kernels launched once a mixer
+    layer, no plain version on the card, the parameters' placements
+    kept; the collectives of the first sharded step and the step's ms
+    (the median of the last two, CUDA-synchronized wall) with and
+    without the mesh."""
+    import numpy as np
+
+    from repro_torch.distributed import collective_log
     from repro_torch.kernels import platform
     from repro_torch.nn import param_axes
-    from repro_torch.serving import make_decode_step, make_prefill_step
+    from repro_torch.nn.model import tree_leaves
     from repro_torch.training import (
-        AdamConfig,
         TrainStepConfig,
         adam_init,
         make_train_step,
     )
 
-    cfg = get_config("qwen3-4b").replace(n_layers=DIST_LAYERS)
-    params, n_params, _ = _instance(dev, cfg)
-    axes = param_axes(cfg)
-    mesh = DeviceMesh("cuda", torch.zeros((1, 1), dtype=torch.int64),
-                      mesh_dim_names=("data", "model"))
-    rules = ShardingRules(mesh)
-    params_s = shard_tree(rules, params, axes)
-    toks = torch.randint(0, cfg.vocab, (TRAIN_B, TRAIN_S),
-                         generator=torch.Generator(dev).manual_seed(3),
-                         device=dev, dtype=torch.int32)
-    batch = {"tokens": toks}
-    batch_s = shard_tree(rules, batch, {"tokens": ("batch", None)})
-    adam = AdamConfig(lr=TRAIN_LR)
     ts = TrainStepConfig(adam=adam)
-    plain_step = make_train_step(cfg, ts)
-    mesh_step = make_train_step(cfg, ts, rules, param_axes=axes)
-    out, walls = {}, {"plain": [], "mesh": []}
+    steps = {"plain": (make_train_step(cfg, ts), params, batch),
+             "mesh": (make_train_step(cfg, ts, rules,
+                                      param_axes=param_axes(cfg)),
+                      params_s, batch_s)}
+    res, walls = {}, {"plain": [], "mesh": []}
     for rep in range(3):  # the first of each is a warm-up
-        for name, step, p, b in (("plain", plain_step, params, batch),
-                                 ("mesh", mesh_step, params_s, batch_s)):
+        for name, (step, p, b) in steps.items():
+            first = name == "mesh" and rep == 0
+            clog = collective_log() if first else contextlib.nullcontext()
+            _free()  # the last step's blocks, before the next's
             platform.reset_launches()
             _sync(dev)
             t0 = time.perf_counter()
-            _, _, m = step(p, adam_init(p, adam), b)
-            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            with clog:
+                p_new, _, m = step(p, adam_init(p, adam), b)
+                loss, gnorm = float(m["loss"]), float(m["grad_norm"])
             walls[name].append(time.perf_counter() - t0)
-            out[name] = {"loss": loss, "grad_norm": gnorm,
+            res[name] = {"loss": loss, "grad_norm": gnorm,
                          "launches": platform.launch_counts(),
                          "plain_on_card": platform.plain_on_cuda_counts()}
+            if first:
+                colls = clog.by_kind()
+                kept = all(a.placements == c.placements for a, c in zip(
+                    tree_leaves(p_new), tree_leaves(p)))
+            del p_new, m
     step_ms = {k: float(np.median(v[1:])) * 1e3 for k, v in walls.items()}
-    train_err = {k: _rel(out["mesh"][k], out["plain"][k])
-                 for k in ("loss", "grad_norm")}
-    flash = out["mesh"]["launches"].get("flash_attention", 0)
-    if max(train_err.values()) > DIST_LM_TOL:
-        fail(f"sharded qwen3-4b train step: {out['mesh']} against "
-             f"{out['plain']} (relative {train_err})")
-    if flash != DIST_LAYERS or out["mesh"]["plain_on_card"]:
-        fail(f"sharded qwen3-4b train step: flash launched {flash} times "
-             f"(want {DIST_LAYERS}), plain versions on the card "
-             f"{out['mesh']['plain_on_card']}")
-    # prefill then one decode, with and without the rules
-    max_seq = TRAIN_S + 4
-    with torch.no_grad():
-        lg, cache = make_prefill_step(cfg, max_seq=max_seq)(params, batch)
-        dl, _ = make_decode_step(cfg)(params, cache,
-                                      {"tokens": toks[:, -1:]}, TRAIN_S)
+    err = {k: _rel(res["mesh"][k], res["plain"][k])
+           for k in ("loss", "grad_norm")}
+    if max(err.values()) > DIST_LM_TOL or not kept:
+        fail(f"{label} train step: {res['mesh']} against {res['plain']} "
+             f"(relative {err}), placements kept {kept}")
+    got = {k: v for k, v in res["mesh"]["launches"].items() if v}
+    if got != _kernels_a_call(cfg, False) or res["mesh"]["plain_on_card"]:
+        fail(f"{label} train step: launches {got} (want "
+             f"{_kernels_a_call(cfg, False)}), plain versions on the card "
+             f"{res['mesh']['plain_on_card']}")
+    return {"train": res, "train_rel_err": err, "step_ms": step_ms,
+            "mesh_overhead": step_ms["mesh"] / step_ms["plain"] - 1.0,
+            "train_collectives": colls, "placements_kept": kept,
+            "train_launches": got}
+
+
+def _mesh_serve(dev, cfg, params, params_s, rules, toks, toks_s,
+                label: str) -> dict:
+    """A prefill and one decode with the rules, each held to the same
+    call without them at ``DIST_LM_TOL`` (logits, relative to their
+    largest), the kernels launched once a mixer layer and call, the
+    collectives of each sharded call, and each call's ms (the second of
+    each, CUDA-synchronized wall) with and without the mesh."""
+    import torch
+
+    from repro_torch.distributed import collective_log
+    from repro_torch.kernels import platform
+    from repro_torch.serving import make_decode_step, make_prefill_step
+
+    S = toks.shape[1]
+    calls = {
+        "plain": (make_prefill_step(cfg, max_seq=S + 4),
+                  make_decode_step(cfg), params, toks),
+        "mesh": (make_prefill_step(cfg, rules, max_seq=S + 4),
+                 make_decode_step(cfg, rules), params_s, toks_s)}
+    logits, ms, launches, colls = {}, {}, {}, {}
+
+    def timed(call, fn, check, wall):
+        log_ = collective_log() if check else contextlib.nullcontext()
         platform.reset_launches()
-        lg_s, cache_s = make_prefill_step(cfg, rules, max_seq=max_seq)(
-            params_s, batch_s)
-        prefill_launches = platform.launch_counts()
-        dl_s, _ = make_decode_step(cfg, rules)(
-            params_s, cache_s, {"tokens": batch_s["tokens"][:, -1:]},
-            TRAIN_S)
-    serve_err = {}
-    for name, got, want in (("prefill", lg_s, lg), ("decode", dl_s, dl)):
-        got = got.full_tensor().float()
-        want = want.float()
-        serve_err[name] = float((got - want).abs().max()
-                                / want.abs().max().clamp_min(1e-30))
-    if max(serve_err.values()) > DIST_LM_TOL:
-        fail(f"sharded qwen3-4b serving: logits relative {serve_err}")
-    if prefill_launches.get("flash_attention", 0) != DIST_LAYERS:
-        fail(f"sharded qwen3-4b prefill: flash launched "
-             f"{prefill_launches.get('flash_attention', 0)} times")
-    res = {"layers": DIST_LAYERS, "params_b": n_params / 1e9,
-           "train": out, "train_rel_err": train_err,
-           "serve_rel_err": serve_err, "step_ms": step_ms,
-           "mesh_overhead": step_ms["mesh"] / step_ms["plain"] - 1.0,
-           "prefill_launches": prefill_launches,
-           "flash_launches": {"train_step": flash,
-                              "prefill": prefill_launches.get(
-                                  "flash_attention", 0)}}
-    log(f"sharded qwen3-4b: {res}")
-    del params, params_s, cache, cache_s
+        _sync(dev)
+        t0 = time.perf_counter()
+        with log_:
+            out = fn()
+            _sync(dev)
+        wall[call] = (time.perf_counter() - t0) * 1e3
+        if check:
+            launches[call] = _check_launches(platform, cfg,
+                                             f"{label} {call}",
+                                             call == "decode")
+            colls[call] = log_.by_kind()
+        return out
+
+    with torch.no_grad():
+        for name, (prefill, decode, p, t) in calls.items():
+            for rep in range(2):  # the mesh's first is checked and logged
+                check, ms[name] = name == "mesh" and rep == 0, {}
+                lg, cache = timed("prefill", lambda: prefill(
+                    p, {"tokens": t}), check, ms[name])
+                dl, _ = timed("decode", lambda: decode(
+                    p, cache, {"tokens": t[:, -1:]}, S), check, ms[name])
+                del cache
+            logits[name] = (lg, dl)
+    err = {call: _max_rel(g, w) for call, g, w in zip(
+        ("prefill", "decode"), logits["mesh"], logits["plain"])}
+    if max(err.values()) > DIST_LM_TOL:
+        fail(f"{label}: logits relative {err} against the plain calls")
+    return {"rel_err": err, "ms": ms, "launches": launches,
+            "collectives": colls}
+
+
+def _mesh_lm(dev, cfg, params, n_params: int, rules, adam,
+             label: str) -> dict:
+    """``cfg``'s parameters sharded by ``rules``, then ``_mesh_train``
+    (unless ``adam`` is None) and ``_mesh_serve`` on one ``TRAIN_B`` x
+    ``TRAIN_S`` batch of seeded tokens; the peak GB over both."""
+    import torch
+
+    from repro_torch.distributed import shard_tree
+    from repro_torch.nn import param_axes
+
+    torch.cuda.reset_peak_memory_stats()
+    params_s = shard_tree(rules, params, param_axes(cfg))
+    toks = torch.randint(0, cfg.vocab, (TRAIN_B, TRAIN_S),
+                         generator=torch.Generator(dev).manual_seed(3),
+                         device=dev, dtype=torch.int32)
+    toks_s = shard_tree(rules, toks, ("batch", None))
+    out = {"layers": cfg.n_layers, "params_b": n_params / 1e9}
+    if cfg.moe is not None:
+        w1 = next(layer["moe"]["w1"] for unit in params_s["blocks"]
+                  for layer in unit.values() if "moe" in layer)
+        out["w1_shard_dims"] = [q.dim for q in w1.placements
+                                if q.is_shard()]
+        out["w1_local_shape"] = list(w1.to_local().shape)
+    if adam is not None:
+        out.update(_mesh_train(dev, cfg, params, params_s, rules,
+                               {"tokens": toks}, {"tokens": toks_s}, adam,
+                               label))
+    out.update(_mesh_serve(dev, cfg, params, params_s, rules, toks, toks_s,
+                           label))
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"{label}: { {k: v for k, v in out.items() if k != 'train'} }")
+    del params_s
     _free()
-    return res
+    return out
+
+
+def _sharded_lm(dev) -> dict:
+    """qwen3-4b at full width, ``DIST_LAYERS`` layers, bf16 compute, on
+    the (1, 1) mesh under the default rules: ``_mesh_lm`` (a train step,
+    a prefill and a decode)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import ShardingRules
+    from repro_torch.training import AdamConfig
+
+    cfg = get_config("qwen3-4b").replace(n_layers=DIST_LAYERS)
+    params, n_params, _ = _instance(dev, cfg)
+    out = _mesh_lm(dev, cfg, params, n_params,
+                   ShardingRules(_one_rank_mesh()),
+                   AdamConfig(lr=TRAIN_LR), "sharded qwen3-4b")
+    del params
+    _free()
+    return out
+
+
+def _sharded_moe(dev) -> dict:
+    """The sharded MoE on the (1, 1) mesh, by "model (route)":
+    qwen2-moe-a2.7b (``DIST_LAYERS`` layers, full width, bf16 compute,
+    ``DIST_MOE_STATE`` Adam moments) under each ``DIST_MOE_ROUTES``
+    rules, a train step, a prefill and a decode; Jamba at full width,
+    the first ``DIST_JAMBA_LAYERS`` layers of its period, bf16
+    parameters, on EP (its 16 experts on the model axis), a prefill and
+    a decode.  Each route's ``w1`` must be sharded on its dim."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import ShardingRules
+    from repro_torch.training import AdamConfig
+
+    mesh = _one_rank_mesh()
+    jamba = get_config("jamba-v0.1-52b")
+    jamba = jamba.replace(n_layers=DIST_JAMBA_LAYERS, param_dtype="bfloat16",
+                          hybrid=dataclasses.replace(
+                              jamba.hybrid, period=DIST_JAMBA_LAYERS))
+    out = {}
+    for cfg, routes, adam in (
+            (get_config("qwen2-moe-a2.7b").replace(n_layers=DIST_LAYERS),
+             DIST_MOE_ROUTES,
+             AdamConfig(lr=TRAIN_LR, state_dtype=DIST_MOE_STATE)),
+            (jamba, {"ep": {}}, None)):
+        params, n_params, _ = _instance(dev, cfg)
+        for route, over in routes.items():
+            label = f"{cfg.name} ({route})"
+            r = _mesh_lm(dev, cfg, params, n_params,
+                         ShardingRules(mesh).with_overrides(**over), adam,
+                         f"sharded {label}")
+            if r["w1_shard_dims"] != [{"ep": 0, "tp": 2}[route]]:
+                fail(f"sharded {label}: w1 sharded on dims "
+                     f"{r['w1_shard_dims']}")
+            out[label] = r
+        del params
+        _free()
+    return out
 
 
 def phase_distribution(dev) -> dict:
     """Probe meshes in the executor, the int8 compressed all-reduce on a
-    one-rank NCCL group, and the sharded LM steps on a (1, 1) mesh of
-    that group (destroyed after)."""
+    one-rank NCCL group, and the sharded LM steps and the sharded MoE on
+    a (1, 1) mesh of that group (destroyed after)."""
     import tempfile
 
     import torch.distributed as dist
@@ -3411,9 +3590,11 @@ def phase_distribution(dev) -> dict:
     try:
         psum = _psum_one_rank(dev)
         lm = _sharded_lm(dev)
+        moe = _sharded_moe(dev)
     finally:
         dist.destroy_process_group()
-    return {"probe_mesh": probe, "compressed_psum": psum, "lm": lm}
+    return {"probe_mesh": probe, "compressed_psum": psum, "lm": lm,
+            "moe": moe}
 
 
 def _same_state(got, want, label: str, path: str = "") -> None:
@@ -3804,7 +3985,14 @@ def main() -> int:
          "kernel_route": "wgmma",
          "training_launches": training["full"]["qwen3-4b"]["launches"][
              "flash_attention"],
-         "mesh_launches": distribution["lm"]["flash_launches"]},
+         "mesh_launches": {
+             "train_step": distribution["lm"]["train_launches"][
+                 "flash_attention"],
+             "prefill": distribution["lm"]["launches"]["prefill"][
+                 "flash_attention"]},
+         "moe_mesh_launches": {
+             label: r["launches"]["prefill"]["flash_attention"]
+             for label, r in distribution["moe"].items()}},
         {"name": "mamba_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
          "replaces": "src/repro/kernels/mamba_scan.py:26",
@@ -3815,7 +4003,10 @@ def main() -> int:
                       "library_ms", "bound_terms_ms")},
          **_decode_row(lm["timing"]["scan_decode"]),
          "training_launches": training["full"]["jamba-v0.1-52b"][
-             "launches"]["mamba_scan"]},
+             "launches"]["mamba_scan"],
+         "moe_mesh_launches": {
+             call: distribution["moe"]["jamba-v0.1-52b (ep)"]["launches"][
+                 call]["mamba_scan"] for call in ("prefill", "decode")}},
     ]
     summary = {"single_task": {k: v for k, v in single.items()
                                if k != "stats"},
@@ -3937,9 +4128,11 @@ def main() -> int:
                                              "sharded_axis", "seconds")}
                        for k, r in distribution["probe_mesh"].items()},
         "compressed_psum": distribution["compressed_psum"],
-        "lm": {k: distribution["lm"][k]
-               for k in ("train_rel_err", "serve_rel_err", "step_ms",
-                         "mesh_overhead", "flash_launches")}}}), flush=True)
+        **{part: {label: {k: r[k] for k in DIST_SUMMARY if k in r}
+                      for label, r in runs.items()}
+           for part, runs in (("lm", {"qwen3-4b": distribution["lm"]}),
+                              ("moe", distribution["moe"]))}}}),
+        flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,10 +9,12 @@ MOOProblem (``repro_torch.planner``).  With handfuls of artifacts per cell the
 surrogates are intentionally low-capacity; the analytic calibrated model
 remains the default and the surrogate path demonstrates the decoupling.
 
-An artifact marked ``"expert_parallel": false`` (the port's dry-run of a
-MoE model, which gathers every expert on every rank instead of the
-reference's expert parallelism) measured another plan than the one its
-``plan`` names, so :func:`harvest` leaves it out.
+The port's dry-run runs a MoE model's experts as the plan shards them
+(``nn.moe``: EP, or TP inside the experts), and its artifacts carry a
+``"moe"`` record; :func:`harvest` takes them.  An artifact marked
+``"expert_parallel": false`` without that record comes from an earlier
+dry-run that gathered every expert on every rank, another plan than the
+one its ``plan`` names, so :func:`harvest` leaves it out.
 """
 
 from __future__ import annotations
@@ -66,13 +68,14 @@ def harvest(arch: str, shape: str, directory=None):
     """Rows for one (arch, shape): (X encoded (n, D), Y (n, 3) seconds
     [compute, memory, collective], tags).  ``directory`` overrides the
     cwd-relative artifact root (``None`` -> ``DRYRUN_DIR``).  Artifacts
-    marked ``"expert_parallel": false`` are left out."""
+    marked ``"expert_parallel": false`` without a ``"moe"`` record (an
+    earlier dry-run's, every expert gathered) are left out."""
     directory = _resolve_root(directory)
     enc = SpaceEncoder(plan_space())
     X, Y, tags = [], [], []
     for p in sorted(directory.glob(f"{arch}__{shape}__*.json")):
         rec = json.loads(p.read_text())
-        if rec.get("expert_parallel") is False:
+        if rec.get("expert_parallel") is False and "moe" not in rec:
             continue
         r = rec["roofline"]
         X.append(enc.encode(_plan_to_knobs(rec)))

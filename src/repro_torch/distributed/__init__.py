@@ -32,6 +32,7 @@ from .sharding import (
     spec_tree,
     split_last,
 )
+from .debug import COLLECTIVE_KINDS, collective_log
 from .collectives import (
     compressed_psum,
     dequantize_int8,

@@ -24,13 +24,16 @@ op into local ops and collectives first):
 
 Divergences from the reference: no XLA compile (``compile_s`` is the
 traced run's seconds), and every layer runs, so there is no 1- and
-2-unit extrapolation.  The MoE layers gather every expert's weights on
-every rank and route each rank's rows locally, where the reference
-shards the experts over the model axis and exchanges tokens with an
-all-to-all each way: the collectives and memory of a MoE cell are not
-the reference plan's.  Its artifact says so (``"expert_parallel":
-false``; ``null`` for a model without experts), and ``data.harvest``
-leaves such artifacts out.  Nothing happens at import.
+2-unit extrapolation.  The MoE layers run the plan's expert sharding
+(``nn.moe``: EP where the experts shard the model axis, TP inside the
+experts where ``rules_for`` moves it to ``expert_ff``), but combine the
+experts' outputs with an all-reduce of partial sums where the
+reference's cost model prices an all-to-all.  A MoE cell's artifact
+says ``"expert_parallel": true`` when its expert weights are sharded on
+the mesh (``false`` where the plan keeps them whole; ``null`` for a
+model without experts) and adds ``"moe"``: the route, rank 0's local
+and the global bytes of the expert weights, and the all-gathers of an
+expert weight over the model axis (none).  Nothing happens at import.
 
 Usage:
     python -m repro_torch.launch.dryrun --arch qwen3-4b --shape train_4k
@@ -52,7 +55,13 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..configs import SHAPES, all_cells, cache_axes, get_config, input_specs
 from ..configs import runnable
-from ..distributed import is_dtensor, mesh_sizes, shard_tree
+from ..distributed import (
+    COLLECTIVE_KINDS,
+    is_dtensor,
+    mesh_axis_names,
+    mesh_sizes,
+    shard_tree,
+)
 from ..nn import abstract_params, param_axes
 from ..nn.model import tree_leaves
 from ..serving.steps import make_decode_step, make_prefill_step
@@ -71,19 +80,10 @@ from .roofline import (
     ssm_scan_correction,
 )
 
-# ``_c10d_functional`` op -> the reference's HLO collective kind
-_COLLECTIVES = {
-    "all_reduce": "all-reduce",
-    "all_gather_into_tensor": "all-gather",
-    "reduce_scatter_tensor": "reduce-scatter",
-    "all_to_all_single": "all-to-all",
-}
-
-
-def _group_size(args) -> int:
+def _group(args):
     from torch.distributed.distributed_c10d import _resolve_process_group
 
-    return _resolve_process_group(args[-1]).size()
+    return _resolve_process_group(args[-1])
 
 
 def wire_bytes(kind: str, nbytes: float, g: int) -> float:
@@ -116,6 +116,7 @@ class StepCounter(TorchDispatchMode):
         self.bytes = 0.0
         self.ops = 0
         self.coll = CollectiveStats()
+        self.gathers: list[tuple[tuple, str]] = []  # (input shape, group)
         self.live = 0
         self.peak = 0
 
@@ -135,10 +136,14 @@ class StepCounter(TorchDispatchMode):
         packet = func._overloadpacket
         name = packet.__name__
         if func.namespace == "_c10d_functional":
-            kind = _COLLECTIVES.get(name)
+            kind = COLLECTIVE_KINDS.get(name)
             if kind is not None:
                 nbytes = float(out.nbytes)
-                g = max(_group_size(args), 1)
+                group = _group(args)
+                g = max(group.size(), 1)
+                if kind == "all-gather":
+                    self.gathers.append((tuple(args[0].shape),
+                                         group.group_name))
                 w = wire_bytes(kind, nbytes, g)
                 st = self.coll
                 st.wire_bytes += w
@@ -179,10 +184,56 @@ def _storages(tree) -> set:
             for t in tree_leaves(tree) if isinstance(t, torch.Tensor)}
 
 
+def _expert_weights(params, axes) -> list:
+    """The leaves whose logical axes name ``"expert"``, with their axes."""
+    out = []
+    if isinstance(params, dict):
+        for k in params:
+            out += _expert_weights(params[k], axes[k])
+    elif isinstance(params, (list, tuple)):
+        for p, a in zip(params, axes):
+            out += _expert_weights(p, a)
+    elif axes is not None and "expert" in axes:
+        out.append((params, axes))
+    return out
+
+
+def _moe_record(params, axes, batch_axes) -> tuple[dict, set, set]:
+    """A MoE cell's ``"moe"`` record (the route its expert weights take,
+    rank 0's local and the global bytes of them), the local shapes an
+    all-gather of one of them would take as input (at rest, and whole on
+    the batch axes after the FSDP gather) and the groups of the mesh axes
+    outside the batch's."""
+    weights = _expert_weights(params, axes)
+    mesh = weights[0][0].device_mesh
+    names = mesh_axis_names(mesh)
+    routes, shapes, local, whole = set(), set(), 0, 0
+    for w, ax in weights:
+        loc = w.to_local()
+        local += int(loc.nbytes)
+        whole += w.numel() * w.element_size()
+        shapes.add(tuple(loc.shape))
+        gathered = list(w.shape)
+        for i, pl in enumerate(w.placements):
+            if pl.is_shard() and names[i] not in batch_axes:
+                gathered[pl.dim] //= mesh.size(i)
+                routes.add({"expert": "ep", "expert_ff": "tp"}.get(
+                    ax[pl.dim], ax[pl.dim]))
+        shapes.add(tuple(gathered))
+    groups = {mesh.get_group(a).group_name for a in names
+              if a not in batch_axes}
+    rec = {"route": "+".join(sorted(routes)) or "whole",
+           "expert_bytes_local": local, "expert_bytes_global": whole}
+    return rec, shapes, groups
+
+
 def lower_cell(arch: str, shape_name: str, multi_pod: bool,
                plan: Plan | None = None, mesh=None):
     """Build one cell: its sharded step and its ``meta`` arguments.
-    Returns (cfg, shape, step, args, meta)."""
+    Returns (cfg, shape, step, args, meta).  A MoE cell's ``meta`` holds
+    the private ``"_experts"``: the local shapes of its expert weights
+    and the groups of the mesh axes outside the batch's
+    (``_moe_record``), which :func:`run_cell` pops."""
     cfg0 = get_config(arch)
     shape = SHAPES[shape_name]
     if not runnable(cfg0, shape):
@@ -226,10 +277,14 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
         "arch": arch, "shape": shape_name,
         "mesh": "2x16x16" if multi_pod else "16x16",
         "chips": chips,
-        "expert_parallel": None if cfg.moe is None else False,
+        "expert_parallel": None,
         "plan": {f: getattr(plan, f) for f in plan.__dataclass_fields__},
-        "lower_s": time.perf_counter() - t0,
     }
+    if cfg.moe is not None:
+        meta["moe"], *meta["_experts"] = _moe_record(
+            params, p_axes, rules.physical("batch"))
+        meta["expert_parallel"] = meta["moe"]["route"] != "whole"
+    meta["lower_s"] = time.perf_counter() - t0
     return cfg, shape, step, args, meta
 
 
@@ -239,12 +294,18 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
     artifact (the reference's keys) to ``out_dir``."""
     cfg, shape, step, args, meta = lower_cell(arch, shape_name, multi_pod,
                                               plan, mesh)
+    experts = meta.pop("_experts", None)
     mesh = mesh or next(t for t in tree_leaves(args[0])).device_mesh
     counter = StepCounter()
     t0 = time.perf_counter()
     with counter:
         out = step(*args)
     meta["compile_s"] = time.perf_counter() - t0
+    if experts is not None:
+        shapes, groups = experts
+        meta["moe"]["expert_gathers"] = sum(
+            1 for shp, grp in counter.gathers
+            if shp in shapes and grp in groups)
     arg_b = _local_bytes(args)
     out_b = _local_bytes(out)
     in_st = _storages(args)

@@ -24,12 +24,25 @@
   scale (Jamba in bf16 with its MoE layers once its routing choices are
   pinned to the unsharded run's; the flips are counted).  The port's unsharded step is held to the reference's at
   ``tests/test_torch_training.py``'s fp32 parity tolerances.
+* The sharded MoE on the ``(2, 4)`` mesh (``MOE_CASES``): Jamba (4
+  experts) and qwen2-moe (8) on the EP route, qwen2-moe under the
+  ``expert=(), expert_ff=("model",)`` override on the TP route, and the
+  capacity-drop config on both routes through the scatter/gather
+  dispatch.  From the reference's weights (written as numpy here,
+  converted by ``nn.convert`` in each rank), fp32 prefill and decode
+  logits within 1e-5 relative of the port's unsharded call and within
+  0.05 x the scale of the reference's unsharded logits; each rank holds
+  E/4 experts (EP) or ``expert_ff``/4 (TP); one sharded MoE call's only
+  collective is the all-reduce of its output (no all-gather of an expert
+  weight).  qwen2-moe train steps on both routes at the qwen3-4b step's
+  bars, the expert weights' placements kept.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import pickle
 import subprocess
 import sys
 
@@ -74,6 +87,7 @@ from repro_torch.distributed import (
 from repro_torch.exec import ProbeExecutor
 from repro_torch.launch import plans as pplans
 from repro_torch.nn.convert import params_from_numpy
+from repro_torch.nn.moe import expert_capacity
 
 CPU = "cpu"
 FAST = MOGDConfig(steps=40, multistart=4)
@@ -353,9 +367,39 @@ def test_input_specs_and_cache_axes_equal_the_reference(arch, shape):
 # ---------------------------------------------------------------------------
 
 
+sys.path.insert(0, os.path.dirname(RANKS))
+from torch_dist_ranks import (  # noqa: E402
+    MOE_CASES,
+    moe_case_cfg,
+    moe_case_tokens,
+)
+
+
+def _write_moe_refs(d) -> dict:
+    """Per ``MOE_CASES`` case: the reference's seed-0 weights written to
+    ``d`` as a numpy tree, and its unsharded fp32 prefill and decode
+    logits."""
+    refs = {}
+    for case in MOE_CASES:
+        rc = moe_case_cfg(rconfigs, case)
+        rp, _ = rnn.init_params(jax.random.PRNGKey(0), rc)
+        with open(d / f"{case}.pkl", "wb") as f:
+            pickle.dump(jax.tree.map(np.asarray, rp), f)
+        toks, last = moe_case_tokens(case, rc.vocab)
+        S = toks.shape[1]
+        lg, cache = rnn.prefill(rp, rc, {"tokens": jnp.asarray(toks)},
+                                max_seq=S + 4)
+        dl, _ = rnn.decode_step(rp, rc, cache, {"tokens": jnp.asarray(last)},
+                                jnp.int32(S))
+        refs[case] = {"prefill": np.asarray(lg, np.float32),
+                      "decode": np.asarray(dl, np.float32)}
+    return refs
+
+
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     d = tmp_path_factory.mktemp("ranks")
+    refs = _write_moe_refs(d)
     env = {**os.environ, "OMP_NUM_THREADS": "1"}
     procs = [subprocess.Popen([sys.executable, RANKS, str(r), "8", str(d)],
                               stdout=subprocess.PIPE,
@@ -364,7 +408,13 @@ def ranks(tmp_path_factory):
     logs = [p.communicate(timeout=300)[0].decode(errors="replace")
             for p in procs]
     assert all(p.returncode == 0 for p in procs), logs[0][-3000:]
-    return json.loads((d / "result.json").read_text())
+    out = json.loads((d / "result.json").read_text())
+    for case, ref in refs.items():
+        for call, want in ref.items():
+            out["moe"][case][f"{call}_ref"] = want
+            out["moe"][case][f"{call}_got"] = np.load(
+                d / f"{case}_{call}.npy")
+    return out
 
 
 class TestMultiDevice:
@@ -386,7 +436,6 @@ def test_sharded_driver_matches_one_device(ranks):
     same run on one device: every loss within 5e-2."""
     from repro_torch.launch import train
 
-    sys.path.insert(0, os.path.dirname(RANKS))
     from torch_dist_ranks import DRIVER_ARGS
 
     want = train.main(DRIVER_ARGS)["losses"]
@@ -419,6 +468,64 @@ class TestShardedServingParity:
         if r["prefill_max_diff"] > 0.05 * max(r["logit_scale"], 1.0):
             assert r["flipped_tokens"] > 0
         assert 0 <= r["flipped_tokens"] <= r["routed_tokens"]
+
+
+class TestShardedMoE:
+    """The sharded MoE on the (2, 4) mesh (``MOE_CASES``)."""
+
+    @pytest.mark.parametrize("call", ["prefill", "decode"])
+    @pytest.mark.parametrize("case", list(MOE_CASES))
+    def test_matches_the_unsharded_port(self, ranks, case, call):
+        """The logits within 1e-5 relative, and the decode cache's
+        per-expert loads equal (over capacity in the drop cases)."""
+        r = ranks["moe"][case]
+        assert r[f"{call}_rel"] <= 1e-5
+        assert r["counts_equal"]
+        if case.startswith("drops"):
+            assert r["max_load"] > expert_capacity(
+                moe_case_cfg(pconfigs, case).moe)
+
+    @pytest.mark.parametrize("call", ["prefill", "decode"])
+    @pytest.mark.parametrize("case", list(MOE_CASES))
+    def test_matches_the_reference(self, ranks, case, call):
+        r = ranks["moe"][case]
+        got, want = r[f"{call}_got"], r[f"{call}_ref"]
+        assert got.shape == want.shape
+        scale = float(np.abs(r["prefill_ref"]).max())
+        assert np.abs(got - want).max() <= 0.05 * max(scale, 1.0)
+
+    @pytest.mark.parametrize("case", list(MOE_CASES))
+    def test_local_shards_and_collectives(self, ranks, case):
+        """Each rank holds E/4 experts (EP) or expert_ff/4 (TP); one
+        sharded MoE call, laid out as the residual stream, all-reduces
+        its output and gathers no expert weight."""
+        r = ranks["moe"][case]
+        E, D, F = r["global_w1"]
+        tp = bool(MOE_CASES[case][3])
+        assert r["local_w1"] == ([E, D, F // 4] if tp else [E // 4, D, F])
+        assert r["local_w2"] == ([E, F // 4, D] if tp else [E // 4, F, D])
+        assert r["call_collectives"] == ["all-reduce"]
+        assert r["call_weight_gathers"] == 0
+        assert r["call_rel"] <= 1e-5
+
+    @pytest.mark.parametrize("route", ["ep", "tp"])
+    def test_train_step(self, ranks, route):
+        """The qwen2-moe smoke step in fp32 compute at ``check_train``'s
+        bars, and every parameter's gradient (the router, the experts'
+        ``w1``/``w2``/``w3`` and the shared expert among them) within
+        1e-4 relative of the unsharded step's: a first Adam step moves
+        each parameter by about lr whatever its gradient, so the
+        parameter bar alone would not see a wrongly reduced gradient."""
+        r = ranks["moe_train"][route]
+        assert abs(r["loss_plain"] - r["loss_sharded"]) < 5e-2
+        assert r["param_delta_max"] < 5e-2
+        assert r["placements_kept"]
+        moe = {p.rsplit("/", 1)[1] for p in r["grad_rel"] if "/moe/" in p}
+        assert moe >= {"router", "w1", "w2", "w3", "shared_w1",
+                       "shared_w2", "shared_w3", "shared_gate"}
+        assert max(r["grad_rel"].values()) <= 1e-4, r["grad_rel"]
+        assert abs(r["grad_norm_sharded"] - r["grad_norm_plain"]) <= \
+            1e-4 * r["grad_norm_plain"]
 
 
 def test_unsharded_step_matches_the_reference():

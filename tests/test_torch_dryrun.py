@@ -9,8 +9,13 @@ its own fake process group of 256 ranks; this process starts none).
   0's shards, times the chips, are at least ``model_flops_for`` (6 N D)
   and at most 1.5 times it.  The excess is attention's score and value
   products, which 6 N D leaves out: 8.3 % on this cell.
-* One MoE cell (``qwen2-moe-a2.7b`` at ``decode_32k``): marked
-  ``"expert_parallel": false``, which ``data.harvest`` leaves out; a
+* Two MoE cells at ``decode_32k``, their expert weights sharded as the
+  plan lays them out: qwen2-moe-a2.7b's 60 experts on the TP route
+  (``expert_ff`` on the 16-wide model axis) and Jamba's 16 on the EP
+  route.  Each carries ``"expert_parallel": true``, holds 1/16 of the
+  expert weights' bytes on rank 0 and all-gathers none of them over the
+  model axis; ``data.harvest`` takes the artifact, and still leaves out
+  an earlier dry-run's ``false`` artifact (every expert gathered).  A
   dense cell's artifact carries ``null`` there.
 """
 
@@ -67,11 +72,32 @@ def test_train_cell_counts_model_flops(tmp_path):
 
 
 def test_moe_cell_is_marked_and_left_out_of_harvest(tmp_path):
-    # the port's MoE gathers every expert on every rank (no expert
-    # parallelism): its artifact says so, and harvest skips it
+    # qwen2-moe's experts on the TP route: marked, and harvested; an
+    # earlier run's artifact (marked false, no "moe" record) left out
     rec = _cell("qwen2-moe-a2.7b", "decode_32k", tmp_path)
-    assert rec["expert_parallel"] is False
+    assert rec["expert_parallel"] is True
     assert rec["chips"] == 256
     assert rec["roofline"]["flops_per_chip"] > 0
+    moe = rec["moe"]
+    assert moe["route"] == "tp" and moe["expert_gathers"] == 0
+    assert moe["expert_bytes_local"] * 16 == moe["expert_bytes_global"]
+    old = {k: v for k, v in rec.items() if k != "moe"}
+    old["expert_parallel"] = False
+    (tmp_path / "qwen2-moe-a2.7b__decode_32k__16x16__gathered.json"
+     ).write_text(json.dumps(old))
     X, Y, tags = harvest("qwen2-moe-a2.7b", "decode_32k", directory=tmp_path)
-    assert X.shape[0] == 0 and Y.shape[0] == 0 and tags == []
+    assert X.shape[0] == 1 and Y.shape[0] == 1 and tags == ["baseline"]
+    r = rec["roofline"]
+    assert list(Y[0]) == [r["compute_s"], r["memory_s"], r["collective_s"]]
+
+
+def test_expert_parallel_cell_shards_the_experts(tmp_path):
+    # Jamba's 16 experts on the 16-wide model axis: rank 0 holds one
+    # expert of each MoE layer and gathers none
+    rec = _cell("jamba-v0.1-52b", "decode_32k", tmp_path)
+    assert rec["expert_parallel"] is True
+    moe = rec["moe"]
+    assert moe["route"] == "ep" and moe["expert_gathers"] == 0
+    assert moe["expert_bytes_local"] * 16 == moe["expert_bytes_global"]
+    X, _, tags = harvest("jamba-v0.1-52b", "decode_32k", directory=tmp_path)
+    assert X.shape[0] == 1 and tags == ["baseline"]

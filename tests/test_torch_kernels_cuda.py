@@ -1200,7 +1200,10 @@ class TestDistributionOnCard:
     dispatch within 1e-5 (x and f) with feasibility equal; the int8
     compressed all-reduce over a one-rank NCCL group; a smoke train step on
     a (1, 1) DeviceMesh with the sharding rules held to the same step
-    without them (loss at 1e-5, parameters at 1e-6)."""
+    without them (loss at 1e-5, parameters at 1e-6); the same for the
+    qwen2-moe smoke step and prefill on both routes of the sharded MoE
+    (EP under the default rules, TP inside the experts under the
+    ``expert=(), expert_ff=("model",)`` override)."""
 
     def test_two_shard_probe_mesh_equals_unsharded(self, cuda_device):
         from repro_torch.core.mogd import (
@@ -1299,5 +1302,71 @@ class TestDistributionOnCard:
                 np.testing.assert_allclose(b.full_tensor().cpu().numpy(),
                                            a.cpu().numpy(), rtol=1e-6,
                                            atol=1e-6)
+        finally:
+            dist.destroy_process_group()
+
+    @pytest.mark.parametrize("route", ["ep", "tp"])
+    def test_sharded_moe_step_and_prefill_on_nccl(self, cuda_device,
+                                                  tmp_path, route):
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import DeviceMesh
+
+        from repro_torch.configs import get_smoke
+        from repro_torch.distributed import ShardingRules, shard_tree
+        from repro_torch.nn import init_params, param_axes
+        from repro_torch.nn.model import tree_leaves
+        from repro_torch.serving import make_prefill_step
+        from repro_torch.training import (
+            AdamConfig,
+            TrainStepConfig,
+            adam_init,
+            make_train_step,
+        )
+
+        over = {"ep": {}, "tp": {"expert": (), "expert_ff": ("model",)}}
+        dist.init_process_group("nccl", init_method=f"file://{tmp_path}/pg",
+                                rank=0, world_size=1)
+        try:
+            cfg = get_smoke("qwen2-moe-a2.7b").replace(
+                compute_dtype="float32")
+            params = init_params(cfg, seed=0, device=cuda_device)
+            mesh = DeviceMesh("cuda", torch.zeros((1, 1), dtype=torch.int64),
+                              mesh_dim_names=("data", "model"))
+            rules = ShardingRules(mesh).with_overrides(**over[route])
+            axes = param_axes(cfg)
+            batch = {"tokens": torch.tensor(np.random.default_rng(0).integers(
+                0, cfg.vocab, (2, 64)), dtype=torch.int32,
+                device=cuda_device)}
+            batch_s = shard_tree(rules, batch, {"tokens": ("batch", None)})
+            adam = AdamConfig(lr=1e-3)
+            ts = TrainStepConfig(adam=adam)
+            p0, _, m0 = make_train_step(cfg, ts)(
+                params, adam_init(params, adam), batch)
+            ps = shard_tree(rules, params, axes)
+            w1 = ps["blocks"][0]["l0"]["moe"]["w1"]
+            assert [p.dim for p in w1.placements if p.is_shard()] == [
+                0 if route == "ep" else 2]
+            platform.reset_launches()
+            p1, _, m1 = make_train_step(cfg, ts, rules, param_axes=axes)(
+                ps, adam_init(ps, adam), batch_s)
+            assert platform.launch_counts()["flash_attention"] == cfg.n_layers
+            assert not platform.plain_on_cuda_counts()
+            np.testing.assert_allclose(float(m1["loss"]), float(m0["loss"]),
+                                       rtol=1e-5)
+            for a, b, c in zip(tree_leaves(p0), tree_leaves(p1),
+                               tree_leaves(ps)):
+                assert b.placements == c.placements
+                np.testing.assert_allclose(b.full_tensor().cpu().numpy(),
+                                           a.cpu().numpy(), rtol=1e-6,
+                                           atol=1e-6)
+            with torch.no_grad():
+                lg, _ = make_prefill_step(cfg, max_seq=68)(params, batch)
+                platform.reset_launches()
+                lg_s, _ = make_prefill_step(cfg, rules, max_seq=68)(
+                    ps, batch_s)
+            assert platform.launch_counts()["flash_attention"] == cfg.n_layers
+            np.testing.assert_allclose(lg_s.full_tensor().cpu().numpy(),
+                                       lg.cpu().numpy(), rtol=1e-5,
+                                       atol=1e-5)
         finally:
             dist.destroy_process_group()

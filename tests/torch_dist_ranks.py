@@ -15,10 +15,19 @@ readings to ``DIR/result.json``.
   rounding in another order flips some top-k routing choices; that run
   counts the flipped tokens and is repeated with every MoE call's choices
   pinned to the unsharded run's.
+* the sharded MoE (``MOE_CASES``, on the ``(2, 4)`` mesh) from weights the
+  test process wrote as numpy (``DIR/<case>.pkl``, the reference's
+  tree): fp32 prefill and decode sharded against unsharded, the sharded
+  logits saved as ``DIR/<case>_{prefill,decode}.npy`` for the test
+  process to hold to the reference's, the local shards of the first MoE
+  layer and the collectives of one sharded MoE call; and qwen2-moe smoke
+  train steps on both routes.
 """
 
+import dataclasses
 import json
 import os
+import pickle
 import sys
 
 import torch
@@ -50,8 +59,40 @@ def check_psum(mesh) -> dict:
             "resid_norm": float(resid.abs().max())}
 
 
+def _named_leaves(tree, prefix: str = ""):
+    """``(path, leaf)`` of a parameter tree, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        for k in tree:
+            yield from _named_leaves(tree[k], f"{prefix}{k}/")
+    elif isinstance(tree, (list, tuple)):
+        for i, t in enumerate(tree):
+            yield from _named_leaves(t, f"{prefix}{i}/")
+    else:
+        yield prefix[:-1], tree
+
+
+def _grad_rel(cfg, params, batch, params_s, batch_s, rules) -> dict:
+    """Each floating parameter's sharded gradient (``grads_of``, the whole
+    tensor) against the unsharded one: the largest difference relative
+    to the largest unsharded entry, by path."""
+    from repro_torch.distributed import sharded_region
+    from repro_torch.training.train_step import grads_of
+
+    g_ref, _ = grads_of(params, cfg, batch)
+    with sharded_region(rules):
+        g_s, _ = grads_of(params_s, cfg, batch_s, rules=rules)
+    return {path: float((_full(b) - a).abs().max()
+                        / a.abs().max().clamp_min(1e-30))
+            for (path, a), (_, b) in zip(_named_leaves(g_ref),
+                                         _named_leaves(g_s))
+            if a.is_floating_point()}
+
+
 def check_train(mesh, arch: str = "qwen3-4b", compute: str | None = None,
-                seq: int = 32) -> dict:
+                seq: int = 32, rules_over: dict | None = None,
+                grads: bool = False) -> dict:
+    """The train step sharded against unsharded; with ``grads``, also
+    every parameter's gradient (``_grad_rel``)."""
     from repro_torch.configs import get_smoke
     from repro_torch.distributed import ShardingRules, shard_tree
     from repro_torch.nn import init_params, param_axes
@@ -73,7 +114,7 @@ def check_train(mesh, arch: str = "qwen3-4b", compute: str | None = None,
     p_ref, _, m_ref = make_train_step(cfg, ts)(
         params, adam_init(params, adam), batch)
 
-    rules = ShardingRules(mesh)
+    rules = ShardingRules(mesh).with_overrides(**(rules_over or {}))
     axes = param_axes(cfg)
     params_s = shard_tree(rules, params, axes)
     batch_s = shard_tree(rules, batch, {"tokens": ("batch", None)})
@@ -85,11 +126,15 @@ def check_train(mesh, arch: str = "qwen3-4b", compute: str | None = None,
                 for a, b in zip(tree_leaves(p_ref), tree_leaves(p_s)))
     kept = all(b.placements == c.placements for b, c in
                zip(tree_leaves(p_s), tree_leaves(params_s)))
-    return {"loss_plain": float(m_ref["loss"]),
-            "loss_sharded": float(m_s["loss"]),
-            "grad_norm_plain": float(m_ref["grad_norm"]),
-            "grad_norm_sharded": float(m_s["grad_norm"]),
-            "param_delta_max": delta, "placements_kept": kept}
+    out = {"loss_plain": float(m_ref["loss"]),
+           "loss_sharded": float(m_s["loss"]),
+           "grad_norm_plain": float(m_ref["grad_norm"]),
+           "grad_norm_sharded": float(m_s["grad_norm"]),
+           "param_delta_max": delta, "placements_kept": kept}
+    if grads:
+        out["grad_rel"] = _grad_rel(cfg, params, batch, params_s, batch_s,
+                                    rules)
+    return out
 
 
 def check_serving(mesh, arch: str, decode: bool, **over) -> dict:
@@ -201,6 +246,122 @@ def check_jamba_routing(mesh) -> dict:
             "match_margin": st["margin"]}
 
 
+# the sharded MoE's cases: the smoke config, its MoE config's changes, the
+# dispatch, the rules' overrides and the prompt length.  "drops" is
+# TestMoECapacityParity's config (4 experts, groups of 16, capacity 8 <
+# the loads), on the scatter/gather dispatch
+TP_RULES = {"expert": (), "expert_ff": ("model",)}
+_DROPS = {"num_experts": 4, "group_size": 16, "capacity_factor": 1.0}
+MOE_CASES = {
+    "jamba_ep": ("jamba-v0.1-52b", {}, "einsum", {}, 24),
+    "qwen_ep": ("qwen2-moe-a2.7b", {}, "einsum", {}, 24),
+    "qwen_tp": ("qwen2-moe-a2.7b", {}, "einsum", TP_RULES, 24),
+    "drops_ep": ("qwen2-moe-a2.7b", _DROPS, "gather", {}, 32),
+    "drops_tp": ("qwen2-moe-a2.7b", _DROPS, "gather", TP_RULES, 32),
+}
+MOE_B = 2
+
+
+def moe_case_cfg(configs, case: str):
+    """A case's fp32 config from ``configs`` (either package's)."""
+    arch, moe_over, impl, _, _ = MOE_CASES[case]
+    cfg = configs.get_smoke(arch)
+    return cfg.replace(compute_dtype="float32", moe_impl=impl,
+                       moe=dataclasses.replace(cfg.moe, **moe_over))
+
+
+def moe_case_tokens(case: str, vocab: int):
+    """A case's prompt (MOE_B, S) as int32 numpy, and its decode token."""
+    import numpy as np
+
+    S = MOE_CASES[case][4]
+    toks = (np.arange(MOE_B * S, dtype=np.int32).reshape(MOE_B, S) * 7
+            + 3) % vocab
+    return toks, toks[:, -1:]
+
+
+def _first_moe(params):
+    for unit in params["blocks"]:
+        for layer in unit.values():
+            if "moe" in layer:
+                return layer["moe"]
+    raise ValueError("no MoE layer")
+
+
+def check_moe(mesh, case: str, d: str) -> dict:
+    """One ``MOE_CASES`` case: the reference's weights from ``DIR``, fp32
+    prefill and decode sharded against unsharded; the first MoE layer's
+    local shards; the collectives of one sharded MoE call."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.distributed import (
+        ShardingRules,
+        collective_log,
+        constrain,
+        shard_tree,
+        sharded_region,
+    )
+    from repro_torch.nn import param_axes
+    from repro_torch.nn.convert import params_from_numpy
+    from repro_torch.nn.model import cast_params
+    from repro_torch.nn.moe import moe
+    from repro_torch.serving import make_decode_step, make_prefill_step
+
+    cfg = moe_case_cfg(configs, case)
+    with open(os.path.join(d, f"{case}.pkl"), "rb") as f:
+        params = params_from_numpy(pickle.load(f), "cpu")
+    toks, last = map(torch.tensor, moe_case_tokens(case, cfg.vocab))
+    S = toks.shape[1]
+    rules = ShardingRules(mesh).with_overrides(**MOE_CASES[case][3])
+    params_s = shard_tree(rules, params, param_axes(cfg))
+    toks_s = shard_tree(rules, toks, ("batch", None))
+    last_s = shard_tree(rules, last, ("batch", None))
+    out = {}
+    lg, cache = make_prefill_step(cfg, max_seq=S + 4)(params, {"tokens": toks})
+    lg_s, cache_s = make_prefill_step(cfg, rules, max_seq=S + 4)(
+        params_s, {"tokens": toks_s})
+    dl, cache_d = make_decode_step(cfg)(params, cache, {"tokens": last}, S)
+    dl_s, cache_ds = make_decode_step(cfg, rules)(params_s, cache_s,
+                                                  {"tokens": last_s}, S)
+    loads = [(layer["moe_counts"], _full(layer_s["moe_counts"]))
+             for c, c_s in ((cache, cache_s), (cache_d, cache_ds))
+             for unit, unit_s in zip(c, c_s)
+             for layer, layer_s in zip(unit.values(), unit_s.values())
+             if "moe_counts" in layer]
+    out["counts_equal"] = all(torch.equal(a, b) for a, b in loads)
+    out["max_load"] = max(int(a.max()) for a, _ in loads)  # the prefill's
+    for name, want, got in (("prefill", lg, lg_s), ("decode", dl, dl_s)):
+        got = _full(got)
+        out[f"{name}_rel"] = float((got - want).abs().max()
+                                   / want.abs().max())
+        if dist.get_rank() == 0:
+            np.save(os.path.join(d, f"{case}_{name}.npy"), got.numpy())
+    w = _first_moe(params_s)
+    out["local_w1"] = list(w["w1"].to_local().shape)
+    out["global_w1"] = list(w["w1"].shape)
+    out["local_w2"] = list(w["w2"].to_local().shape)
+    # one sharded MoE call, its output laid out as the residual stream
+    x = torch.randn((MOE_B, S, cfg.d_model),
+                    generator=torch.Generator().manual_seed(5))
+    x_s = shard_tree(rules, x, ("batch", None, "embed"))
+    with sharded_region(rules):
+        p_l = cast_params(w, torch.float32, rules)
+        shapes = {tuple(t.to_local().shape) for t in p_l.values()}
+        log = collective_log()
+        with log:
+            y = constrain(moe(p_l, cfg, cfg.moe, x_s, rules), rules,
+                          "batch", None, "embed")
+    out["call_collectives"] = sorted({k for k, _, _ in log.records})
+    out["call_weight_gathers"] = sum(
+        1 for k, shp, _ in log.records
+        if k == "all-gather" and shp in shapes)
+    out["call_rel"] = float((_full(y) - moe(
+        _first_moe(params), cfg, cfg.moe, x)).abs().max() / _full(y).abs()
+        .max())
+    return out
+
+
 DRIVER_ARGS = ["--arch", "qwen3-4b", "--smoke", "--steps", "3", "--batch",
                "4", "--seq", "16", "--device", "cpu", "--log-every", "100"]
 
@@ -228,7 +389,12 @@ def main() -> None:
                                            compute_dtype="float32"),
                "jamba_dense_bf16": check_serving(m24, "jamba-v0.1-52b",
                                                  False, moe=None),
-               "jamba_moe_bf16": check_jamba_routing(m24)}
+               "jamba_moe_bf16": check_jamba_routing(m24),
+               "moe": {c: check_moe(m24, c, d) for c in MOE_CASES},
+               "moe_train": {
+                   route: check_train(m24, "qwen2-moe-a2.7b", "float32",
+                                      rules_over=over, grads=True)
+                   for route, over in (("ep", {}), ("tp", TP_RULES))}}
         if rank == 0:
             with open(os.path.join(d, "result.json"), "w") as f:
                 json.dump(out, f)
