@@ -142,7 +142,24 @@ Phases (any failure exits non-zero; nothing is caught and turned into 0):
    the rules (``DIST_LM_TOL``), each kernel launched once a mixer layer
    and call and no plain version on the card; the collectives of each
    sharded call by kind and bytes, the step and call ms with and without
-   the mesh and the peak memory are reported.
+   the mesh and the peak memory are reported.  On the same mesh: the
+   qwen3-4b state (parameters and Adam moments after one step, full
+   width) saved through ``CheckpointManager`` under the group and
+   restored with its shardings into fresh DTensors, held to the saved
+   state bit for bit with the same placements, one more step from each
+   held to the other at ``DIST_LM_TOL`` (save and restore seconds and GB
+   written reported); ``launch.train.main`` under the group at the
+   qwen3-4b smoke config with ``--ckpt`` to ``MESH_DRIVER_STEPS[0]``, its
+   checkpoint restored bit for bit, and a second ``main`` resuming to
+   ``MESH_DRIVER_STEPS[1]``; ``ServeEngine(rules=)`` against the plain
+   engine on ``ENGINE_REQUESTS`` requests over ``ENGINE_SLOTS`` slots
+   (qwen3-4b and Jamba on EP): equal tokens, each kernel once a mixer
+   layer and call, no plain version on the card.
+7d. The port's twins of the LM examples and of ``scripts/smoke_archs.py``
+   (``TWINS``), each run once on the card in its own process: each must
+   exit 0; ``torch_smoke_archs.py`` must pass all ten architectures and
+   launch the flash, WKV and scan kernels with no plain version on the
+   card.  Each twin's seconds are reported.
 8. Assertions: fused dispatches, no fallbacks, every kernel launched on its
    path, every descend launch of phases 3-5 on the resident route, no JAX
    or ``repro`` module loaded, everything on ``cuda``.
@@ -174,7 +191,10 @@ Standard output ends with the service, comparison, planner, front-desk
 (latency by class,
 shed counts, ``recommend`` while dispatching, launches, the plane), vault,
 model-server and LM-serving summary lines, the decode calls' host pieces,
-the LM training line (with the card's name and power limit),
+the LM training line (with the card's name and power limit), the
+distribution line, the checkpoint line (7c's save and restore seconds and
+GB written, with the card's name and power limit; the sharded driver; the
+engines with rules), the twins line (7d, with every phase's seconds),
 the kernels' JSON record (seven kernels; WKV and the scan with their
 decode call's times beside the prefill's, the scan's bound counting its
 exps on the SFUs) and the device JSON line.  Without a CUDA device, or outside the repository, the
@@ -328,6 +348,18 @@ DIST_MOE_STATE = "bfloat16"
 DIST_SUMMARY = ("train_rel_err", "step_ms", "mesh_overhead",
                 "train_collectives", "rel_err", "ms", "collectives",
                 "peak_gb")
+# the sharded driver on the (1, 1) mesh: a checkpoint every 5 steps, a
+# run to step 10, a resume to step 15
+MESH_DRIVER_ARGS = ("--arch", "qwen3-4b", "--smoke", "--batch", "16",
+                    "--seq", "32", "--ckpt-every", "5", "--log-every", "100")
+MESH_DRIVER_STEPS = (10, 15)
+# ServeEngine(rules=) against the plain engine on the (1, 1) mesh
+ENGINE_SLOTS, ENGINE_NEW = 2, 8
+ENGINE_PROMPTS = (16, 48, 32, 64)  # one request each
+# phase 7d: the twins, each run once on the card in its own process
+TWINS = ("scripts/torch_smoke_archs.py", "examples/torch_serve_batched.py",
+         "examples/torch_train_e2e.py")
+TWIN_TIMEOUT_S = 300
 
 
 def log(*args) -> None:
@@ -3517,19 +3549,234 @@ def _mesh_lm(dev, cfg, params, n_params: int, rules, adam,
     return out
 
 
+def _mesh_checkpoint(dev, cfg, params, rules, adam) -> dict:
+    """``cfg``'s state after one step with the rules (parameters and Adam
+    moments, DTensors on the mesh) saved through ``CheckpointManager``
+    under the group (``save_async`` then ``wait``: save seconds, the
+    snapshot's share, GB written, one sha256 pass of the file timed
+    apart), restored by ``launch.train.restore_train_state`` into fresh
+    DTensors (restore seconds), held to the saved state bit for bit with
+    the same placements; then one more step from each, loss and gradient
+    norm within ``DIST_LM_TOL`` relative.  The read is warm (the page
+    cache holds the file just written)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.distributed import shard_tree
+    from repro_torch.launch import train
+    from repro_torch.nn import param_axes
+    from repro_torch.nn.model import tree_leaves
+    from repro_torch.persist.store import sha256_file
+    from repro_torch.runtime import CheckpointManager
+    from repro_torch.training import (
+        TrainStepConfig,
+        adam_init,
+        make_train_step,
+    )
+
+    label = f"{cfg.name} checkpoint"
+    axes = param_axes(cfg)
+    step = make_train_step(cfg, TrainStepConfig(adam=adam), rules,
+                           param_axes=axes)
+    toks = torch.randint(0, cfg.vocab, (TRAIN_B, TRAIN_S),
+                         generator=torch.Generator(dev).manual_seed(4),
+                         device=dev, dtype=torch.int32)
+    batch = {"tokens": shard_tree(rules, toks, ("batch", None))}
+    params_s = shard_tree(rules, params, axes)
+    p1, o1, _ = step(params_s, adam_init(params_s, adam), batch)
+    del params_s
+    _free()
+    saved = {"params": p1, "opt": o1}
+    state_gb = sum(t.numel() * t.element_size()
+                   for t in tree_leaves(saved)) / 1e9
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    try:
+        mgr = CheckpointManager(root)
+        _sync(dev)
+        t0 = time.perf_counter()
+        mgr.save_async(1, train.checkpoint_tree(saved))
+        snapshot_s = time.perf_counter() - t0
+        mgr.wait()
+        save_s = time.perf_counter() - t0
+        _free()
+        files = list((root / "step_00000001").iterdir())
+        written_gb = sum(f.stat().st_size for f in files) / 1e9
+        t0 = time.perf_counter()
+        sha256_file(root / "step_00000001" / "shard_00000.npz")
+        sha256_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        _sync(dev)
+        t0 = time.perf_counter()
+        restored, manifest = train.restore_train_state(mgr, saved)
+        _sync(dev)
+        restore_s = time.perf_counter() - t0
+        restore_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if manifest["step"] != 1:
+        fail(f"{label}: restored step {manifest['step']}")
+    leaves = _same_state(restored, saved, label)
+    steps = {}
+    for name, state in (("saved", saved), ("restored", restored)):
+        _free()
+        _, _, m = step(state["params"], state["opt"], batch)
+        steps[name] = {"loss": float(m["loss"]),
+                       "grad_norm": float(m["grad_norm"])}
+        del m
+    err = {k: _rel(steps["restored"][k], steps["saved"][k])
+           for k in ("loss", "grad_norm")}
+    if max(err.values()) > DIST_LM_TOL:
+        fail(f"{label}: the step from the restored state {steps['restored']}"
+             f" against the saved state's {steps['saved']}")
+    del saved, restored, p1, o1
+    _free()
+    out = {"state_gb": state_gb, "written_gb": written_gb,
+           "save_s": save_s, "snapshot_s": snapshot_s,
+           "sha256_s": sha256_s, "restore_s": restore_s,
+           "restore_peak_gb": restore_peak_gb, "leaves": leaves,
+           "next_step": steps, "next_step_rel_err": err}
+    log(f"{label}: {out}")
+    return out
+
+
+def _mesh_engine(dev, cfg, params, rules, label: str) -> dict:
+    """``ServeEngine(rules=)`` on ``cfg``'s parameters sharded by the
+    rules against the plain engine, ``len(ENGINE_PROMPTS)`` requests on
+    ``ENGINE_SLOTS`` slots, ``ENGINE_NEW`` new tokens each: equal greedy
+    tokens, each kernel launched once a mixer layer and call (prefills
+    and decodes counted from the requests), no plain version on the
+    card; each engine's wall seconds."""
+    import numpy as np
+
+    from repro_torch.distributed import shard_tree
+    from repro_torch.kernels import platform
+    from repro_torch.nn import param_axes
+    from repro_torch.serving import Request, ServeEngine
+
+    max_seq = max(ENGINE_PROMPTS) + ENGINE_NEW + 8
+    runs = {}
+    for name, r in (("plain", None), ("rules", rules)):
+        p = params if r is None else shard_tree(r, params, param_axes(cfg))
+        engine = ServeEngine(p, cfg, batch=ENGINE_SLOTS, max_seq=max_seq,
+                             rules=r, device=dev)
+        rng = np.random.default_rng(5)
+        reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, n).astype(
+            np.int32), max_new=ENGINE_NEW)
+                for i, n in enumerate(ENGINE_PROMPTS)]
+        _free()
+        platform.reset_launches()
+        _sync(dev)
+        t0 = time.perf_counter()
+        engine.run(reqs)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        prefills, decodes = len(reqs), sum(len(q.out) - 1 for q in reqs)
+        want = {}
+        for calls, decode in ((prefills, False), (decodes, True)):
+            for k, v in _kernels_a_call(cfg, decode).items():
+                want[k] = want.get(k, 0) + calls * v
+        got = {k: v for k, v in platform.launch_counts().items() if v}
+        if got != want:
+            fail(f"{label} engine ({name}): launches {got}, want {want}")
+        if platform.plain_on_cuda_counts():
+            fail(f"{label} engine ({name}): plain versions on the card "
+                 f"{platform.plain_on_cuda_counts()}")
+        runs[name] = {"tokens": [q.out for q in reqs], "wall_s": wall,
+                      "launches": got}
+        del engine, p
+    if runs["rules"]["tokens"] != runs["plain"]["tokens"]:
+        fail(f"{label} engine: tokens with the rules "
+             f"{runs['rules']['tokens']} against "
+             f"{runs['plain']['tokens']}")
+    out = {"requests": len(ENGINE_PROMPTS),
+           "tokens": sum(len(t) for t in runs["rules"]["tokens"]),
+           "wall_s": {k: r["wall_s"] for k, r in runs.items()},
+           "launches": runs["rules"]["launches"]}
+    log(f"{label} engine: {out}")
+    _free()
+    return out
+
+
+def _mesh_driver(dev) -> dict:
+    """``launch.train.main`` under the running group (the (1, 1) mesh of
+    its one rank) at the qwen3-4b smoke config with ``--ckpt``: a run to
+    ``MESH_DRIVER_STEPS[0]`` whose state is DTensors, its checkpoint
+    restored bit for bit with the same placements, a second ``main``
+    resuming to ``MESH_DRIVER_STEPS[1]`` (``TestTrainDriver``'s contract:
+    as many finite losses as its steps); launches as ``_train_counts``
+    holds them, in both runs."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.distributed import is_dtensor
+    from repro_torch.kernels import platform
+    from repro_torch.launch import train
+    from repro_torch.runtime import CheckpointManager
+
+    cfg = get_smoke("qwen3-4b")
+    k, n = MESH_DRIVER_STEPS
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_driver_"))
+    args = [*MESH_DRIVER_ARGS, "--device", "cuda", "--ckpt", str(root)]
+    try:
+        platform.reset_launches()
+        with contextlib.redirect_stdout(sys.stderr):
+            r1 = train.main(args + ["--steps", str(k)])
+        _sync(dev)
+        c1 = _train_counts(platform, cfg, k, "sharded driver")
+        saved = r1.pop("state")
+        if not is_dtensor(saved["params"]["embed"]["tok"]):
+            fail("sharded driver: the state is not on the mesh")
+        state, manifest = train.restore_train_state(CheckpointManager(root),
+                                                    saved)
+        if manifest["step"] != k:
+            fail(f"sharded driver: restored step {manifest['step']}")
+        leaves = _same_state(state, saved, "sharded driver restore")
+        del state, saved
+        platform.reset_launches()
+        with contextlib.redirect_stdout(sys.stderr):
+            r2 = train.main(args + ["--steps", str(n)])
+        _sync(dev)
+        c2 = _train_counts(platform, cfg, n - k, "resumed sharded driver")
+        count = int(r2.pop("state")["opt"]["count"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    losses = r1["losses"] + r2["losses"]
+    if (len(r1["losses"]) != k or len(r2["losses"]) != n - k or count != n
+            or not np.isfinite(losses).all()):
+        fail(f"sharded driver: {len(r1['losses'])} then "
+             f"{len(r2['losses'])} losses, step count {count}, finite "
+             f"{np.isfinite(losses).all()}")
+    out = {"losses": losses, "leaves": leaves,
+           "step_ms": [r1["wall_s"] / k * 1e3, r2["wall_s"] / (n - k) * 1e3],
+           "slowdown": [r1["slowdown"], r2["slowdown"]],
+           "launches": [c1["launches"], c2["launches"]]}
+    log(f"sharded driver: {out}")
+    _free()
+    return out
+
+
 def _sharded_lm(dev) -> dict:
     """qwen3-4b at full width, ``DIST_LAYERS`` layers, bf16 compute, on
     the (1, 1) mesh under the default rules: ``_mesh_lm`` (a train step,
-    a prefill and a decode)."""
+    a prefill and a decode), ``_mesh_checkpoint`` (its state saved and
+    restored) and ``_mesh_engine`` (the engine with the rules)."""
     from repro_torch.configs import get_config
     from repro_torch.distributed import ShardingRules
     from repro_torch.training import AdamConfig
 
     cfg = get_config("qwen3-4b").replace(n_layers=DIST_LAYERS)
     params, n_params, _ = _instance(dev, cfg)
-    out = _mesh_lm(dev, cfg, params, n_params,
-                   ShardingRules(_one_rank_mesh()),
-                   AdamConfig(lr=TRAIN_LR), "sharded qwen3-4b")
+    rules = ShardingRules(_one_rank_mesh())
+    adam = AdamConfig(lr=TRAIN_LR)
+    out = _mesh_lm(dev, cfg, params, n_params, rules, adam,
+                   "sharded qwen3-4b")
+    out["checkpoint"] = _mesh_checkpoint(dev, cfg, params, rules, adam)
+    out["engine"] = _mesh_engine(dev, cfg, params, rules, "sharded qwen3-4b")
     del params
     _free()
     return out
@@ -3541,8 +3788,9 @@ def _sharded_moe(dev) -> dict:
     ``DIST_MOE_STATE`` Adam moments) under each ``DIST_MOE_ROUTES``
     rules, a train step, a prefill and a decode; Jamba at full width,
     the first ``DIST_JAMBA_LAYERS`` layers of its period, bf16
-    parameters, on EP (its 16 experts on the model axis), a prefill and
-    a decode.  Each route's ``w1`` must be sharded on its dim."""
+    parameters, on EP (its 16 experts on the model axis), a prefill, a
+    decode and ``_mesh_engine``.  Each route's ``w1`` must be sharded on
+    its dim."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -3569,6 +3817,11 @@ def _sharded_moe(dev) -> dict:
             if r["w1_shard_dims"] != [{"ep": 0, "tp": 2}[route]]:
                 fail(f"sharded {label}: w1 sharded on dims "
                      f"{r['w1_shard_dims']}")
+            if cfg is jamba:
+                r["engine"] = _mesh_engine(
+                    dev, cfg, params,
+                    ShardingRules(mesh).with_overrides(**over),
+                    f"sharded {label}")
             out[label] = r
         del params
         _free()
@@ -3591,30 +3844,80 @@ def phase_distribution(dev) -> dict:
         psum = _psum_one_rank(dev)
         lm = _sharded_lm(dev)
         moe = _sharded_moe(dev)
+        driver = _mesh_driver(dev)
     finally:
         dist.destroy_process_group()
     return {"probe_mesh": probe, "compressed_psum": psum, "lm": lm,
-            "moe": moe}
+            "moe": moe, "driver": driver}
 
 
-def _same_state(got, want, label: str, path: str = "") -> None:
+def phase_twins(dev) -> dict:
+    """Phase 7d: each of ``TWINS`` once on the card, in its own process
+    (with this run's kernel build): exit code 0, its seconds;
+    ``torch_smoke_archs.py`` must pass every architecture and its last
+    line must show the flash, WKV and scan kernels launched and no plain
+    version on the card."""
+    import os
+
+    _free()
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (str(SRC), os.environ.get("PYTHONPATH")) if p)}
+    out = {}
+    for rel in TWINS:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(ROOT / rel)],
+                              capture_output=True, text=True, cwd=ROOT,
+                              env=env, timeout=TWIN_TIMEOUT_S)
+        seconds = time.perf_counter() - t0
+        log(f"{rel} ({seconds:.1f} s, exit {proc.returncode}):\n"
+            f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+        if proc.returncode != 0:
+            fail(f"{rel} exited {proc.returncode}")
+        out[rel] = {"seconds": seconds}
+        if rel == "scripts/torch_smoke_archs.py":
+            lines = proc.stdout.strip().splitlines()
+            counts = json.loads(lines[-1])
+            launched = counts["launches"]
+            if ("all architectures smoke-pass" not in lines[-2]
+                    or sum(line.startswith("OK ") for line in lines) != 10
+                    or not all(launched.get(k, 0) > 0 for k in (
+                        "flash_attention", "rwkv6_wkv", "mamba_scan"))
+                    or counts["plain_on_cuda"]):
+                fail(f"{rel}: {lines[-12:]}")
+            out[rel].update(counts)
+    return out
+
+
+def _same_state(got, want, label: str, path: str = "") -> int:
     """``got`` equal to ``want`` bit for bit: the same keys, and each leaf
-    of the same dtype, device and shape with equal contents."""
+    of the same dtype, device and shape with equal contents (a DTensor's
+    whole tensor), a DTensor leaf in the same placements and a plain leaf
+    plain.  Returns the number of leaves."""
     import torch
+
+    from repro_torch.distributed import is_dtensor
 
     if isinstance(want, dict):
         if not isinstance(got, dict) or set(got) != set(want):
             fail(f"{label}: {path or 'the state'} holds other keys")
-        for k in want:
-            _same_state(got[k], want[k], label, f"{path}/{k}")
-    elif isinstance(want, (list, tuple)):
+        return sum(_same_state(got[k], want[k], label, f"{path}/{k}")
+                   for k in want)
+    if isinstance(want, (list, tuple)):
         if len(got) != len(want):
             fail(f"{label}: {path} holds {len(got)} items, not {len(want)}")
-        for i, (g, w) in enumerate(zip(got, want)):
-            _same_state(g, w, label, f"{path}/{i}")
-    elif (got.dtype != want.dtype or got.device != want.device
-          or got.shape != want.shape or not torch.equal(got, want)):
+        return sum(_same_state(g, w, label, f"{path}/{i}")
+                   for i, (g, w) in enumerate(zip(got, want)))
+    if is_dtensor(got) != is_dtensor(want) or (
+            is_dtensor(want) and got.placements != want.placements):
+        fail(f"{label}: {path} placed as "
+             f"{getattr(got, 'placements', 'a plain tensor')}, saved as "
+             f"{getattr(want, 'placements', 'a plain tensor')}")
+    if is_dtensor(want):
+        got, want = got.full_tensor(), want.full_tensor()
+    if (got.dtype != want.dtype or got.device != want.device
+            or got.shape != want.shape or not torch.equal(got, want)):
         fail(f"{label}: {path} differs from the saved leaf")
+    return 1
 
 
 def train_driver(dev, arch: str, root) -> dict:
@@ -3876,6 +4179,9 @@ def main() -> int:
     # phase 7c: distribution (launches counted inside)
     distribution = phase_distribution(dev)
     mark("distribution")
+    # phase 7d: the twins of the LM examples and of smoke_archs
+    twins = phase_twins(dev)
+    mark("twins")
 
     # phase 8: assertions
     for label, st in (("single task", single["stats"]),
@@ -3973,6 +4279,8 @@ def main() -> int:
                       "library_ms", "layout")},
          **_decode_row(lm["timing"]["wkv_decode"]),
          "training_launches": training["full"]["rwkv6-3b"]["launches"][
+             "rwkv6_wkv"],
+         "twin_launches": twins["scripts/torch_smoke_archs.py"]["launches"][
              "rwkv6_wkv"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -3992,7 +4300,11 @@ def main() -> int:
                  "flash_attention"]},
          "moe_mesh_launches": {
              label: r["launches"]["prefill"]["flash_attention"]
-             for label, r in distribution["moe"].items()}},
+             for label, r in distribution["moe"].items()},
+         "engine_rules_launches": distribution["lm"]["engine"]["launches"][
+             "flash_attention"],
+         "twin_launches": twins["scripts/torch_smoke_archs.py"]["launches"][
+             "flash_attention"]},
         {"name": "mamba_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
          "replaces": "src/repro/kernels/mamba_scan.py:26",
@@ -4006,7 +4318,11 @@ def main() -> int:
              "launches"]["mamba_scan"],
          "moe_mesh_launches": {
              call: distribution["moe"]["jamba-v0.1-52b (ep)"]["launches"][
-                 call]["mamba_scan"] for call in ("prefill", "decode")}},
+                 call]["mamba_scan"] for call in ("prefill", "decode")},
+         "engine_rules_launches": distribution["moe"][
+             "jamba-v0.1-52b (ep)"]["engine"]["launches"]["mamba_scan"],
+         "twin_launches": twins["scripts/torch_smoke_archs.py"]["launches"][
+             "mamba_scan"]},
     ]
     summary = {"single_task": {k: v for k, v in single.items()
                                if k != "stats"},
@@ -4030,7 +4346,8 @@ def main() -> int:
                "compose_path": c_main, "compose_4096": c_big,
                "mlp_check": m_chk, "mlp_gate": m_gate, "mlp_4096": m_big,
                "lm": lm, "training": training,
-               "distribution": distribution, "phase_s": phase_s}
+               "distribution": distribution, "twins": twins,
+               "phase_s": phase_s}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
@@ -4133,6 +4450,21 @@ def main() -> int:
            for part, runs in (("lm", {"qwen3-4b": distribution["lm"]}),
                               ("moe", distribution["moe"]))}}}),
         flush=True)
+    ckpt = distribution["lm"]["checkpoint"]
+    print(json.dumps({"checkpoint": {
+        "card": card, "model": f"qwen3-4b, {DIST_LAYERS} layers, full width",
+        **{k: ckpt[k] for k in ("state_gb", "written_gb", "save_s",
+                                "snapshot_s", "sha256_s", "restore_s",
+                                "restore_peak_gb", "next_step_rel_err")},
+        "sharded_driver": {k: distribution["driver"][k]
+                           for k in ("losses", "step_ms")},
+        "engine_rules": {
+            label: r["engine"] for label, r in (
+                ("qwen3-4b", distribution["lm"]),
+                ("jamba-v0.1-52b (ep)",
+                 distribution["moe"]["jamba-v0.1-52b (ep)"]))}}}),
+        flush=True)
+    print(json.dumps({"twins": twins, "phase_s": phase_s}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,6 +16,8 @@ import threading
 import numpy as np
 import torch
 
+from ..distributed import distribute_whole
+
 
 class MarkovCorpus:
     """Order-1 Markov chain with Zipf marginals and banded transitions."""
@@ -50,11 +52,21 @@ class TokenLoader:
     a CUDA device), or the host's numpy array when ``device`` is None.
     Unlike the port's entry points, ``device=None`` here does not mean the
     card: it keeps host arrays, as the reference's ``sharding=None`` does.
+
+    With ``sharding``, a ``(DeviceMesh, placements)`` pair (the
+    counterpart of the reference's ``NamedSharding``), the tensor is a
+    DTensor with those placements on the mesh's device (``device``, when
+    given, must be that device): every rank draws the same batch from the
+    same seed and keeps its own shard.
     """
 
     def __init__(self, corpus: MarkovCorpus, batch: int, seq: int,
-                 device=None, prefetch: int = 2, seed: int = 0):
+                 sharding=None, device=None, prefetch: int = 2,
+                 seed: int = 0):
         self.corpus, self.batch, self.seq = corpus, batch, seq
+        self.sharding = sharding
+        if sharding is not None and device is None:
+            device = sharding[0].device_type
         self.device = None if device is None else torch.device(device)
         self._pin = self.device is not None and self.device.type == "cuda"
         self._q: queue.Queue = queue.Queue(maxsize=prefetch)
@@ -88,7 +100,11 @@ class TokenLoader:
             return {"tokens": arr}
         if not isinstance(arr, torch.Tensor):
             arr = torch.from_numpy(arr)
-        return {"tokens": arr.to(self.device, non_blocking=True)}
+        tokens = arr.to(self.device, non_blocking=True)
+        if self.sharding is not None:
+            mesh, pl = self.sharding
+            tokens = distribute_whole(tokens, mesh, pl)
+        return {"tokens": tokens}
 
     def close(self):
         """Stop the prefetch thread (it exits within its 0.5 s put)."""

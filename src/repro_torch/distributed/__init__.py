@@ -17,12 +17,14 @@ from .sharding import (
     choose_probe_partition,
     constrain,
     constrain_tree,
+    distribute_whole,
     gather_over,
     grad_placements,
     is_dtensor,
     logical_spec,
     mesh_axis_names,
     mesh_sizes,
+    named_sharding,
     named_sharding_tree,
     pin,
     placements,

@@ -18,9 +18,12 @@ entry per dimension: ``None`` (replicated), one axis name, or a tuple of
 names — the entries of the reference's ``PartitionSpec``, in order.
 
 The tree half maps parameter trees onto a ``DeviceMesh``:
-:func:`named_sharding_tree` gives each leaf its DTensor placements,
-:func:`shard_tree` distributes the leaves, and :func:`constrain` is the
-reference's ``with_sharding_constraint`` as a ``DTensor.redistribute``.
+:func:`named_sharding_tree` gives each leaf its DTensor placements
+(:func:`named_sharding` one leaf's ``(mesh, placements)`` pair, the
+counterpart of the reference's ``NamedSharding``), :func:`shard_tree`
+distributes the leaves (:func:`distribute_whole` one tensor), and
+:func:`constrain` is the reference's ``with_sharding_constraint`` as a
+``DTensor.redistribute``.
 """
 
 from __future__ import annotations
@@ -130,13 +133,16 @@ def logical_spec(
     the axis tuple that does divide it (e.g. batch=256 on
     (pod=2, data=16, model=16) shards over (pod, data) and leaves model
     replicated), or full replication if none does.  A physical mesh axis is
-    used at most once per spec (first logical dim wins).
+    used at most once per spec (first logical dim wins).  A dimension of
+    size 1 has nothing to split and stays replicated, on mesh axes of size
+    1 too (DTensor cannot merge a sharded singleton dim into another, as a
+    served slot's batch of one would ask on a one-rank mesh).
     """
     assert len(logical_axes) == len(shape), (logical_axes, shape)
     used: set[str] = set()
     parts = []
     for name, dim in zip(logical_axes, shape):
-        if name is None:
+        if name is None or dim == 1:
             parts.append(None)
             continue
         phys = tuple(
@@ -210,22 +216,32 @@ def named_sharding_tree(rules: ShardingRules, params, axes_tree):
     return _map_leaves(one, params, axes_tree)
 
 
+def named_sharding(rules: ShardingRules, logical_axes, shape) -> tuple:
+    """The counterpart of the reference's ``NamedSharding`` for one leaf
+    of ``shape`` with ``logical_axes``: a ``(mesh, placements)`` pair."""
+    spec = logical_spec(rules, logical_axes, tuple(shape))
+    return rules.mesh, placements(rules.mesh, spec)
+
+
+def distribute_whole(t: torch.Tensor, mesh, pl):
+    """``t``, which holds the same values on every rank, as a DTensor on
+    ``mesh`` with placements ``pl``: each rank keeps its own shard of it
+    (nothing is sent)."""
+    from torch.distributed.tensor import DTensor
+
+    rep = DTensor.from_local(t, mesh, placements(mesh, ()), run_check=False)
+    return rep.redistribute(mesh, pl)
+
+
 def shard_tree(rules: ShardingRules, params, axes_tree):
     """``params`` distributed over ``rules.mesh`` by their logical axes:
     each leaf becomes a DTensor with :func:`named_sharding_tree`'s
     placements.  A leaf is taken to hold the same values on every rank
-    (each rank keeps its own shard of it; nothing is sent)."""
-    from torch.distributed.tensor import DTensor
-
+    (:func:`distribute_whole`)."""
     places = named_sharding_tree(rules, params, axes_tree)
-
-    def one(leaf, pl):
-        rep = DTensor.from_local(leaf, rules.mesh,
-                                 placements(rules.mesh, ()),
-                                 run_check=False)
-        return rep.redistribute(rules.mesh, pl)
-
-    return _map_leaves(one, params, places)
+    return _map_leaves(lambda leaf, pl: distribute_whole(leaf, rules.mesh,
+                                                         pl),
+                       params, places)
 
 
 class _Constrain(torch.autograd.Function):

@@ -15,8 +15,10 @@ Under a running process group (``torchrun``), the parameters, the Adam
 moments and each batch are sharded over a ``(data, model)`` mesh of its
 ranks (``--model-parallel`` of them on the model axis) and the step runs
 with the sharding rules; every rank draws the same batch and keeps its
-shard.  ``--model-parallel`` above 1 without a group raises; a sharded
-run does not checkpoint.
+shard.  A sharded run checkpoints as one: each leaf is gathered whole and
+rank 0 writes it, and a resume restores the parameters and both moments
+into their shardings (the step count replicated), on a mesh of any shape.
+``--model-parallel`` above 1 without a group raises.
 """
 
 from __future__ import annotations
@@ -25,14 +27,19 @@ import argparse
 import time
 
 import numpy as np
+import torch
 
 from ..configs import get_config, get_smoke
 from ..data.lm_data import MarkovCorpus, TokenLoader
-from ..distributed import ShardingRules, shard_tree
-from ..exec import tree_map
+from ..distributed import ShardingRules, named_sharding, shard_tree
 from ..kernels.platform import resolve_device
 from ..nn import init_params, param_axes
-from ..nn.convert import stack_blocks, stacked_like, unstack_blocks
+from ..nn.convert import (
+    stack_blocks,
+    stacked_like,
+    stacked_shardings,
+    unstack_blocks,
+)
 from ..runtime import CheckpointManager, StragglerMonitor
 from ..training import AdamConfig, TrainStepConfig, adam_init, make_train_step
 
@@ -47,18 +54,23 @@ def _state_layout(state: dict, fn) -> dict:
 
 
 def checkpoint_tree(state: dict) -> dict:
-    """A train state as it is written: on the host, in the reference's
-    layout."""
-    host = tree_map(lambda t: t.detach().cpu(), state)
-    return _state_layout(host, stack_blocks)
+    """A train state as it is written: in the reference's layout (block
+    leaves stacked over units, on the state's device and, for DTensors, in
+    their shardings; ``CheckpointManager.save_async`` gathers and copies
+    it to the host)."""
+    with torch.no_grad():
+        return _state_layout(state, stack_blocks)
 
 
 def restore_train_state(mgr: CheckpointManager, like: dict):
     """The newest checkpoint of ``mgr`` as a ``{"params", "opt"}`` state
     with ``like``'s structure, each leaf on the device and in the dtype of
-    ``like``'s.  Returns (state, manifest); raises ``FileNotFoundError``
-    when there is none."""
-    stacked, manifest = mgr.restore_latest(_state_layout(like, stacked_like))
+    ``like``'s, and a DTensor leaf in its mesh and placements.  Returns
+    (state, manifest); raises ``FileNotFoundError`` when there is none."""
+    shardings = _state_layout(like, stacked_shardings)
+    shardings["opt"]["count"] = None  # placed as ``like``'s count is
+    stacked, manifest = mgr.restore_latest(
+        _state_layout(like, stacked_like), shardings=shardings)
     return _state_layout(stacked, unstack_blocks), manifest
 
 
@@ -73,8 +85,6 @@ def _rules(args):
                 f"--model-parallel {args.model_parallel} needs a running "
                 f"process group (torchrun) of a multiple of that many ranks")
         return None
-    if args.ckpt:
-        raise ValueError("a sharded run does not checkpoint: drop --ckpt")
     from .mesh import make_host_mesh
 
     return ShardingRules(make_host_mesh(model=args.model_parallel))
@@ -114,8 +124,10 @@ def main(argv=None) -> dict:
         rules, param_axes=None if rules is None else axes)
 
     corpus = MarkovCorpus(cfg.vocab, seed=args.seed)
-    loader = TokenLoader(corpus, args.batch, args.seq, device=dev,
-                         seed=args.seed + 1)
+    sharding = None if rules is None else named_sharding(
+        rules, ("batch", None), (args.batch, args.seq))
+    loader = TokenLoader(corpus, args.batch, args.seq, sharding=sharding,
+                         device=dev, seed=args.seed + 1)
 
     start = 0
     mgr = CheckpointManager(args.ckpt) if args.ckpt else None
@@ -129,20 +141,19 @@ def main(argv=None) -> dict:
         except FileNotFoundError:
             pass
 
-    monitor = StragglerMonitor(n_hosts=1)
+    # one host without a group, as the reference counts its processes
+    n_hosts = 1 if rules is None else torch.distributed.get_world_size()
+    monitor = StragglerMonitor(n_hosts=n_hosts)
     losses = []
     t_start = time.perf_counter()
     for step in range(start, args.steps):
         t0 = time.perf_counter()
         batch = next(loader)
-        if rules is not None:
-            batch = shard_tree(rules, batch, {k: ("batch", None)
-                                              for k in batch})
         params, opt, metrics = step_fn(params, opt, batch)
         loss = float(metrics["loss"])
         losses.append(loss)
         dt = time.perf_counter() - t0
-        monitor.observe(np.array([dt]))
+        monitor.observe(np.array([dt] * n_hosts))
         if step % args.log_every == 0 or step == args.steps - 1:
             print(f"[train] step {step:5d} loss {loss:7.4f} "
                   f"acc {float(metrics['accuracy']):.3f} "

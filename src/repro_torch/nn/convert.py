@@ -13,7 +13,8 @@ exact.
 Train checkpoints are kept in the reference's layout, so that either
 package resumes from the other's: ``stack_blocks`` / ``unstack_blocks``
 turn a parameter-shaped tree (parameters, Adam moments) into it and back,
-and ``stacked_like`` describes it for a restore without allocating it.
+and ``stacked_like`` and ``stacked_shardings`` describe it (shapes and
+dtypes; DTensor placements) for a restore without allocating it.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..distributed import is_dtensor
 from ..exec import tree_map
 
 
@@ -114,6 +116,24 @@ def _unstack_tensors(stacked) -> list:
         leaf = next(iter(leaf.values()))
     return [tree_map(lambda a, u=u: a[u], stacked)
             for u in range(leaf.shape[0])]
+
+
+def stacked_shardings(tree: dict) -> dict:
+    """The ``(mesh, placements)`` of each DTensor leaf of
+    ``stack_blocks(tree)`` (None for a plain leaf): a block leaf's
+    ``Shard(d)`` becomes ``Shard(d + 1)``, behind the units' dim, so that
+    each unit restores into its own placements."""
+    def placed(t, shift: int = 0):
+        if not is_dtensor(t):
+            return None
+        from torch.distributed.tensor import Shard
+
+        return t.device_mesh, [Shard(p.dim + shift) if p.is_shard() else p
+                               for p in t.placements]
+
+    out = tree_map(placed, {k: v for k, v in tree.items() if k != "blocks"})
+    out["blocks"] = tree_map(lambda t: placed(t, 1), tree["blocks"][0])
+    return out
 
 
 def stacked_like(tree: dict) -> dict:

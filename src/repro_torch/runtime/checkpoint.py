@@ -25,9 +25,20 @@ Guarantees:
   :class:`CheckpointError` naming every step whose background write
   failed — interleaved ``save_async`` calls never silently swallow an
   earlier failure.
-* **Restore onto the target's device** — ``load_checkpoint`` puts every
-  leaf on the device and in the dtype of the matching leaf of ``like_tree``
-  (the one-device counterpart of the reference's target shardings).
+* **Under a process group** — ``save_async`` gathers each DTensor leaf
+  whole (``full_tensor()``, a collective: every rank calls it, in leaf
+  order, on its main thread), and only rank 0 writes, commits and prunes.
+  ``wait()`` is then a collective too: rank 0 joins its writer and
+  broadcasts the failed steps, so a failed write raises
+  :class:`CheckpointError` on every rank.  The directory must be one that
+  every rank sees.
+* **Restore-with-resharding** — ``load_checkpoint`` puts every leaf on the
+  device and in the dtype of the matching leaf of ``like_tree``; with a
+  *target* ``shardings`` tree (a ``(DeviceMesh, placements)`` pair a leaf,
+  the counterpart of the reference's ``NamedSharding``), or where the
+  ``like`` leaf is itself a DTensor, each rank reads the leaf whole and
+  keeps its own shard (nothing is sent), so a checkpoint saved on one mesh
+  restores onto a mesh of another shape — the elastic restart path.
 * **Integrity** — per-file sha256 verified on load.
 
 Trees are nested ``dict`` / ``list`` / ``tuple`` containers of tensors,
@@ -53,6 +64,7 @@ import time
 import numpy as np
 import torch
 
+from ..distributed import distribute_whole, is_dtensor
 from ..persist.store import commit_dir, sha256_file, sweep_tmp
 
 _BF16 = "bfloat16"
@@ -110,12 +122,13 @@ def _treedef(tree) -> str:
 
 
 def _rebuild(tree, leaves):
-    """``tree``'s structure with its leaves taken in order from the
-    iterator ``leaves``."""
+    """``tree``'s structure (its dicts' key order too) with its leaves
+    taken from the iterator ``leaves`` in ``_leaves``' order."""
     if tree is None:
         return None
     if isinstance(tree, dict):
-        return {k: _rebuild(tree[k], leaves) for k in sorted(tree)}
+        got = {k: _rebuild(tree[k], leaves) for k in sorted(tree)}
+        return {k: got[k] for k in tree}
     if isinstance(tree, (list, tuple)):
         return type(tree)(_rebuild(v, leaves) for v in tree)
     return next(leaves)
@@ -181,6 +194,30 @@ def save_checkpoint(directory: str | os.PathLike, step: int, tree,
         raise
 
 
+def _rank() -> int | None:
+    """This process's rank in the running process group, or None without
+    one."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank()
+    return None
+
+
+def _snapshot(leaf, keep: bool):
+    """One leaf copied to the host for a background write.  A DTensor is
+    gathered whole first (a collective); with ``keep`` False (a rank that
+    does not write) the gathered tensor is dropped."""
+    if not isinstance(leaf, torch.Tensor):
+        return np.array(leaf) if keep else None
+    t = leaf.detach()
+    if is_dtensor(t):
+        t = t.full_tensor()
+    if not keep:
+        return None
+    return t.cpu() if t.device.type != "cpu" else t.clone()
+
+
 def latest_step(directory: str | os.PathLike) -> int | None:
     """The newest committed (manifest-bearing) step, or None."""
     base = pathlib.Path(directory)
@@ -213,10 +250,32 @@ def _leaf_like(arr: np.ndarray, stored: str, like):
     return arr.astype(np.asarray(like).dtype)
 
 
+def _sharding_at(shardings, path: tuple):
+    """The ``(mesh, placements)`` pair at ``path`` of a shardings tree, or
+    None where the tree (or a subtree on the way) is None."""
+    for p in path:
+        if shardings is None:
+            return None
+        shardings = shardings[p]
+    return shardings
+
+
+def _mesh_device(mesh) -> torch.device:
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
 def load_checkpoint(directory: str | os.PathLike, like_tree,
-                    step: int | None = None, verify: bool = True):
+                    step: int | None = None, shardings=None,
+                    verify: bool = True):
     """Load into the structure of ``like_tree``: every leaf lands on the
-    device and in the dtype of its ``like`` leaf."""
+    device and in the dtype of its ``like`` leaf.  If ``shardings`` (a
+    tree of ``(DeviceMesh, placements)`` pairs, None for a leaf or a
+    subtree left as it is) is given, a leaf is placed as a DTensor with
+    its *target* sharding — restoring onto a different mesh than the save
+    mesh; a DTensor ``like`` leaf with no sharding given takes its own
+    mesh and placements."""
     base = pathlib.Path(directory)
     if step is None:
         step = latest_step(base)
@@ -243,8 +302,16 @@ def load_checkpoint(directory: str | os.PathLike, like_tree,
         if tuple(arr.shape) != shape:
             raise ValueError(
                 f"{key}: checkpoint shape {arr.shape} != target {shape}")
-        out.append(_leaf_like(arr, leaves.get(key, {}).get("dtype", ""),
-                              like))
+        leaf = _leaf_like(arr, leaves.get(key, {}).get("dtype", ""), like)
+        target = _sharding_at(shardings, path)
+        if target is None and is_dtensor(like):
+            target = (like.device_mesh, like.placements)
+        if target is not None:
+            mesh, pl = target
+            if not isinstance(leaf, torch.Tensor):
+                leaf = torch.as_tensor(leaf)
+            leaf = distribute_whole(leaf.to(_mesh_device(mesh)), mesh, pl)
+        out.append(leaf)
     return _rebuild(like_tree, iter(out)), manifest
 
 
@@ -253,7 +320,9 @@ class CheckpointManager:
 
     At most one background write in flight; ``save_async`` first snapshots
     to host memory (device->host copy is the only blocking part), then the
-    writer thread does the npz+manifest+rename dance.
+    writer thread does the npz+manifest+rename dance.  Under a process
+    group every rank calls ``save_async`` and ``wait`` (each is a
+    collective); rank 0 alone writes.
 
     Failure semantics: a failed background write is recorded with its
     step and raised — as :class:`CheckpointError` — by the next
@@ -272,12 +341,22 @@ class CheckpointManager:
 
     def wait(self) -> None:
         """Join the in-flight write; raise :class:`CheckpointError` if any
-        background save failed since the last successful wait."""
+        background save failed since the last successful wait.  Under a
+        process group rank 0 broadcasts its failed steps once its write
+        has ended, so every rank returns after the commit, or raises."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
         with self._elock:
             failures, self._errors = self._errors, []
+        if _rank() is not None:
+            import torch.distributed as dist
+
+            box = [[(step, repr(e)) for step, e in failures]]
+            dist.broadcast_object_list(box, src=0)
+            if box[0] and not failures:  # a rank that did not write
+                failures = [(step, RuntimeError(f"rank 0: {msg}"))
+                            for step, msg in box[0]]
         if failures:
             raise CheckpointError(failures) from failures[0][1]
 
@@ -291,10 +370,13 @@ class CheckpointManager:
         checkpoint attempt.
         """
         self.wait()
-        # snapshot now: the device->host copy is the only blocking part
+        # snapshot now: the gather and the device->host copy are the only
+        # blocking part; a rank other than 0 gathers and writes nothing
+        keep = _rank() in (None, 0)
         host_tree = _rebuild(tree, iter(
-            leaf.detach().cpu().clone() if isinstance(leaf, torch.Tensor)
-            else np.array(leaf) for _, leaf in _leaves(tree)))
+            _snapshot(leaf, keep) for _, leaf in _leaves(tree)))
+        if not keep:
+            return
 
         def _work():
             try:
@@ -320,6 +402,6 @@ class CheckpointManager:
         # sweep orphaned tmp/old dirs from crashed writers
         sweep_tmp(self.dir)
 
-    def restore_latest(self, like_tree):
+    def restore_latest(self, like_tree, shardings=None):
         """Load the newest step into ``like_tree``'s structure."""
-        return load_checkpoint(self.dir, like_tree)
+        return load_checkpoint(self.dir, like_tree, shardings=shardings)

@@ -12,6 +12,12 @@ decode, which touches only the slot's own tensors.  Temperature sampling
 draws from a ``torch.Generator`` seeded with ``seed``, so its draws differ
 from the reference's ``jax.random`` ones by design; greedy sampling is
 ``argmax``.
+
+With ``rules`` the engine serves a sharded model: the parameters are
+DTensors (``distributed.shard_tree``), the prefill and decode steps run
+with the rules, each slot's cache and each prompt's tokens are laid out
+by their logical axes (a slot's batch of one replicated where it cannot
+split over the batch axes), and a token is sampled from the whole logits.
 """
 
 from __future__ import annotations
@@ -21,9 +27,10 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..distributed import is_dtensor, shard_tree
 from ..kernels.platform import resolve_device
 from ..exec import tree_map
-from ..nn import ArchConfig, cast_params, init_cache
+from ..nn import ArchConfig, cache_axes, cast_params, init_cache
 from ..nn.model import tree_leaves
 from .steps import make_decode_step, make_prefill_step
 
@@ -39,19 +46,24 @@ class Request:
 
 class ServeEngine:
     """Batched decoding over a slot table of size ``batch`` on ``device``
-    (None = ``cuda``; the parameters must already live there)."""
+    (None = ``cuda``; the parameters must already live there, as DTensors
+    on ``rules.mesh`` when ``rules`` is given)."""
 
     def __init__(self, params, cfg: ArchConfig, batch: int, max_seq: int,
-                 temperature: float = 0.0, seed: int = 0, device=None):
+                 rules=None, temperature: float = 0.0, seed: int = 0,
+                 device=None):
         self.device = resolve_device(device)
         for t in tree_leaves(params):
             if t.device != self.device:
                 raise ValueError(f"ServeEngine on {self.device}: parameters "
                                  f"on {t.device}")
-        self.params, self.cfg = params, cfg
-        self.cparams = cast_params(params, cfg.cdtype())  # cast once
+        self.params, self.cfg, self.rules = params, cfg, rules
+        self.cparams = cast_params(params, cfg.cdtype(), rules)  # cast once
         self.batch, self.max_seq = batch, max_seq
         self.cache = init_cache(cfg, 1, max_seq, device=self.device)
+        if rules is not None:  # the layout the rules' prefill returns
+            self.cache = shard_tree(rules, self.cache,
+                                    cache_axes(cfg, 1, max_seq))
         # one per-slot cache (B=1 each) so prefill/evict are per-slot
         self.slots: list = [None] * batch
         self.pending: list[Request] = []  # admitted, awaiting a slot
@@ -60,13 +72,18 @@ class ServeEngine:
         self.slot_pos = np.zeros(batch, np.int32)
         self.temperature = temperature
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
-        self._decode = make_decode_step(cfg)
-        self._prefill = make_prefill_step(cfg, max_seq=max_seq)
+        self._decode = make_decode_step(cfg, rules)
+        self._prefill = make_prefill_step(cfg, rules, max_seq=max_seq)
 
     def _tokens(self, ids) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(ids, np.int64), device=self.device)
+        t = torch.as_tensor(np.asarray(ids, np.int64), device=self.device)
+        if self.rules is not None:
+            t = shard_tree(self.rules, t, ("batch", None))
+        return t
 
     def _sample(self, logits: torch.Tensor) -> int:
+        if is_dtensor(logits):
+            logits = logits.full_tensor()
         if self.temperature <= 0:
             return int(torch.argmax(logits))
         probs = torch.softmax(logits.float() / self.temperature, dim=-1)

@@ -1,5 +1,6 @@
 """The port stands alone: it never loads JAX or the JAX package, and its
-entry points run on the card unless the caller asks for the host.
+entry points (the twins of the LM examples and of ``smoke_archs`` among
+them) run on the card unless the caller asks for the host.
 
 The import check runs in a fresh interpreter, because this test process
 imports both packages for the parity tests.
@@ -7,6 +8,7 @@ imports both packages for the parity tests.
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import os
 import pkgutil
@@ -39,6 +41,28 @@ from repro_torch.serving import ServeEngine
 from repro_torch.service import MOOService
 
 ROOT = Path(__file__).resolve().parents[1]
+# the twins of the reference's LM examples and of scripts/smoke_archs.py
+TWINS = ("examples/torch_train_e2e.py", "examples/torch_serve_batched.py",
+         "scripts/torch_smoke_archs.py")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file: the suite runs in parallel worker
+    processes that idle torch threads would slow."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _twin(rel: str):
+    """A twin script as a module (its ``main`` is not run)."""
+    path = ROOT / rel
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _port_modules() -> list[str]:
@@ -86,12 +110,16 @@ def test_every_module_is_covered():
 
 def test_no_jax_and_no_reference_package_loaded():
     script = f"""
-import importlib, json, sys
+import importlib, importlib.util, json, sys
 sys.path.insert(0, {str(ROOT / 'src')!r})
 sys.path.insert(0, {str(ROOT)!r})
 for name in {_port_modules()!r}:
     importlib.import_module(name)
 import chip_smoke  # noqa: F401
+for rel in {TWINS!r}:
+    spec = importlib.util.spec_from_file_location(
+        rel.split('/')[-1][:-3], {str(ROOT)!r} + '/' + rel)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 import torch.distributed as dist
 bad = sorted(m for m in sys.modules
              if m == 'jax' or m.startswith(('jax.', 'jaxlib'))
@@ -108,7 +136,9 @@ print(json.dumps(bad))
 
 
 def test_port_sources_never_name_jax():
-    for path in (ROOT / "src" / "repro_torch").rglob("*.py"):
+    paths = [*(ROOT / "src" / "repro_torch").rglob("*.py"),
+             *(ROOT / rel for rel in TWINS)]
+    for path in paths:
         for line in path.read_text().splitlines():
             s = line.strip()
             assert not s.startswith(("import jax", "from jax",
@@ -128,7 +158,7 @@ def no_cuda():
     "init_params", "init_cache", "serve_engine", "launch_serve",
     "init_params_jamba", "init_cache_jamba", "serve_engine_moe",
     "launch_serve_jamba", "launch_train", "launch_train_rwkv",
-    "probe_mesh", "service_mesh",
+    "probe_mesh", "service_mesh", *TWINS,
 ])
 def test_entry_points_default_to_cuda_and_raise_here(no_cuda, entry):
     cpu_problem = as_problem(zdt1_task(d=3, device="cpu"))
@@ -165,6 +195,7 @@ def test_entry_points_default_to_cuda_and_raise_here(no_cuda, entry):
                                                  "--smoke", "--steps", "1"]),
         "probe_mesh": lambda: probe_mesh(),
         "service_mesh": lambda: MOOService(mesh="auto"),
+        **{rel: (lambda rel=rel: _twin(rel).main([])) for rel in TWINS},
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()

@@ -1,9 +1,13 @@
-"""One rank of the port's multi-rank CPU checks (``tests/test_torch_distributed.py``).
+"""One rank of the port's multi-rank CPU checks (``tests/test_torch_distributed.py``
+and, in the ``resume`` mode, ``tests/test_torch_dist_resume.py``).
 
-Run as ``python tests/torch_dist_ranks.py RANK WORLD DIR``: every rank joins
-a gloo group through ``file://DIR/pg`` and runs the same checks on a
-``(4, 2)`` and a ``(2, 4)`` ``("data", "model")`` mesh; rank 0 writes the
-readings to ``DIR/result.json``.
+Run as ``python tests/torch_dist_ranks.py RANK WORLD DIR [MODE]``: every
+rank joins a gloo group through ``file://DIR/pg`` and runs the same checks
+on a ``(4, 2)`` and a ``(2, 4)`` ``("data", "model")`` mesh; rank 0 writes
+the readings to ``DIR/result.json``.  The default mode runs the checks
+below; ``resume`` runs ``check_resume``'s (sharded checkpoints, the
+sharded driver's save and resume, ``ServeEngine(rules=)`` and
+``TokenLoader(sharding=)``).
 
 * the int8 compressed all-reduce over the ``data`` sub-group;
 * a qwen3-4b smoke train step, sharded against the same step unsharded;
@@ -28,6 +32,7 @@ import dataclasses
 import json
 import os
 import pickle
+import shutil
 import sys
 
 import torch
@@ -375,14 +380,209 @@ def check_driver() -> dict:
     return {"driver_losses": out["losses"]}
 
 
+# the sharded driver's save and resume (``check_resume``): a checkpoint
+# at RESUME_STEPS[0], a resume to RESUME_STEPS[1]
+RESUME_ARGS = ["--arch", "qwen3-4b", "--smoke", "--batch", "4", "--seq",
+               "16", "--device", "cpu", "--log-every", "100",
+               "--model-parallel", "2", "--ckpt-every", "2"]
+RESUME_STEPS = (2, 4)
+# ServeEngine(rules=) against the plain engine: 4 requests on 2 slots
+ENGINE_ARCHS = ("qwen3-4b", "jamba-v0.1-52b")
+ENGINE_NEW = 6
+
+
+def _placements(tree) -> list:
+    """Each leaf's placements (None for a plain tensor), in
+    ``tree_leaves`` order."""
+    from repro_torch.nn.model import tree_leaves
+
+    return [list(t.placements) if hasattr(t, "placements") else None
+            for t in tree_leaves(tree)]
+
+
+def _same(got, want) -> dict:
+    """``got`` and ``want`` (trees of DTensors or tensors) leaf for leaf:
+    whether every gathered leaf is equal bit for bit, in the same dtype."""
+    from repro_torch.nn.model import tree_leaves
+
+    pairs = list(zip(tree_leaves(got), tree_leaves(want)))
+    return {"leaves": len(pairs),
+            "bitwise": all(a.dtype == b.dtype and torch.equal(
+                _full(a), _full(b)) for a, b in pairs)}
+
+
+def _fresh_state(cfg, rules, adam, seed: int = 7) -> dict:
+    """Another init and zero Adam state, sharded by ``rules`` (None: one
+    device): a restore target whose values differ from the saved ones."""
+    from repro_torch.distributed import shard_tree
+    from repro_torch.nn import init_params, param_axes
+    from repro_torch.training import adam_init
+
+    params = init_params(cfg, seed=seed, device="cpu")
+    if rules is not None:
+        params = shard_tree(rules, params, param_axes(cfg))
+    return {"params": params, "opt": adam_init(params, adam)}
+
+
+def _state_placements_match(state, rules, cfg) -> bool:
+    """The parameters' and both moments' placements equal a fresh
+    ``shard_tree``'s by ``param_axes``; the step count a plain tensor."""
+    from repro_torch.distributed import shard_tree
+    from repro_torch.nn import init_params, param_axes
+
+    want = _placements(shard_tree(rules, init_params(
+        cfg, seed=0, device="cpu"), param_axes(cfg)))
+    return _placements(state) == want * 3 + [None]
+
+
+def check_resume(m42, m24, d: str) -> dict:
+    """Sharded checkpoints and the sharded serving and loading surface on
+    the ``(4, 2)`` mesh ``m42`` and the ``(2, 4)`` mesh ``m24``."""
+    import numpy as np
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.data.lm_data import MarkovCorpus, TokenLoader
+    from repro_torch.distributed import (
+        ShardingRules,
+        named_sharding,
+        shard_tree,
+    )
+    from repro_torch.launch import train
+    from repro_torch.nn import init_params, param_axes
+    from repro_torch.nn.convert import stack_blocks
+    from repro_torch.runtime import CheckpointError, CheckpointManager
+    from repro_torch.runtime.checkpoint import _key, _leaves
+    from repro_torch.serving import Request, ServeEngine
+    from repro_torch.training import (
+        AdamConfig,
+        TrainStepConfig,
+        adam_init,
+        make_train_step,
+    )
+
+    out = {}
+    r42, r24 = ShardingRules(m42), ShardingRules(m24)
+    cfg = get_smoke("qwen3-4b")
+    ckpt = os.path.join(d, "ckpt")
+    args = RESUME_ARGS + ["--ckpt", ckpt]
+
+    # the sharded driver: a checkpoint at step k, then a resume to n
+    k, n = RESUME_STEPS
+    r1 = train.main(args + ["--steps", str(k)])
+    saved = r1["state"]
+    out["first_losses"] = r1["losses"]
+    out["saved_placements_match"] = _state_placements_match(saved, r42, cfg)
+    full = {"params": _full_tree(saved["params"]),
+            "opt": {"mu": _full_tree(saved["opt"]["mu"]),
+                    "nu": _full_tree(saved["opt"]["nu"]),
+                    "count": saved["opt"]["count"]}}
+    if dist.get_rank() == 0:  # the saved state in the reference's layout,
+        # and the step-k checkpoint kept apart for the test process
+        flat = {_key(p): t.numpy() for p, t in _leaves(
+            train._state_layout(full, stack_blocks))}
+        with open(os.path.join(d, "saved.pkl"), "wb") as f:
+            pickle.dump(flat, f)
+        shutil.copytree(ckpt, os.path.join(d, "ckpt_k"))
+    mgr = CheckpointManager(ckpt)
+    for name, rules in (("same_mesh", r42), ("other_mesh", r24)):
+        like = _fresh_state(cfg, rules, AdamConfig())
+        got, manifest = train.restore_train_state(mgr, like)
+        out[name] = {"step": manifest["step"], **_same(got, saved),
+                     "placements_match": _state_placements_match(
+                         got, rules, cfg),
+                     "placements_kept": _placements(got) == _placements(
+                         like)}
+    r2 = train.main(args + ["--steps", str(n)])
+    out["resumed_losses"] = r2["losses"]
+    out["resumed_count"] = int(r2["state"]["opt"]["count"])
+
+    # bf16 moments, saved through the manager and restored bit for bit
+    adam = AdamConfig(lr=1e-2, state_dtype="bfloat16")
+    params = shard_tree(r42, init_params(cfg, seed=3, device="cpu"),
+                        param_axes(cfg))
+    toks = torch.arange(4 * 16, dtype=torch.int32).reshape(4, 16) % cfg.vocab
+    step = make_train_step(cfg, TrainStepConfig(adam=adam), r42,
+                           param_axes=param_axes(cfg))
+    p1, o1, _ = step(params, adam_init(params, adam),
+                     {"tokens": shard_tree(r42, toks, ("batch", None))})
+    state = {"params": p1, "opt": o1}
+    bf = CheckpointManager(os.path.join(d, "bf16"))
+    bf.save_async(1, train.checkpoint_tree(state))
+    bf.wait()
+    got, _ = train.restore_train_state(bf, _fresh_state(cfg, r24, adam))
+    out["bf16"] = {**_same(got, state),
+                   "moment_dtype": str(got["opt"]["mu"]["embed"]["tok"]
+                                       .dtype),
+                   "placements_match": _state_placements_match(got, r24,
+                                                               cfg)}
+
+    # a write that fails on rank 0 raises on every rank
+    bad = os.path.join(d, "not_a_dir")
+    if dist.get_rank() == 0:
+        with open(bad, "w") as f:
+            f.write("a file where the checkpoint directory should be")
+    dist.barrier()
+    failing = CheckpointManager(bad)
+    failing.save_async(1, train.checkpoint_tree(state))
+    try:
+        failing.wait()
+        raised = None
+    except CheckpointError as e:
+        raised = e.steps
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, raised)
+    out["failed_write_raised"] = every
+
+    # ServeEngine(rules=) against the plain engine, fp32 compute
+    out["engine"] = {}
+    for arch in ENGINE_ARCHS:
+        ecfg = get_smoke(arch).replace(compute_dtype="float32")
+        eparams = init_params(ecfg, seed=0, device="cpu")
+        toks = {}
+        for name, rules in (("plain", None), ("rules", r42)):
+            p = eparams if rules is None else shard_tree(
+                rules, eparams, param_axes(ecfg))
+            eng = ServeEngine(p, ecfg, batch=2, max_seq=40, rules=rules,
+                              device="cpu")
+            rng = np.random.default_rng(0)
+            reqs = [Request(rid=i, prompt=rng.integers(
+                0, ecfg.vocab, 8 + 4 * i).astype(np.int32),
+                max_new=ENGINE_NEW) for i in range(4)]
+            toks[name] = [r.out for r in eng.run(reqs)]
+        out["engine"][arch] = toks
+
+    # TokenLoader(sharding=): a DTensor on the batch axes, the same draws
+    corpus = MarkovCorpus(cfg.vocab, seed=0)
+    sh = named_sharding(r42, ("batch", None), (8, 16))
+    plain = TokenLoader(corpus, 8, 16, device="cpu", seed=1)
+    placed = TokenLoader(corpus, 8, 16, sharding=sh, seed=1)
+    batches = [(next(plain)["tokens"], next(placed)["tokens"])
+               for _ in range(3)]
+    plain.close()
+    placed.close()
+    b = batches[0][1]
+    out["loader"] = {
+        "placements": [str(p) for p in b.placements],
+        "local_shape": list(b.to_local().shape),
+        "equal": all(torch.equal(a, _full(c)) for a, c in batches)}
+    return out
+
+
+def _full_tree(tree):
+    from repro_torch.exec import tree_map
+
+    return tree_map(_full, tree)
+
+
 def main() -> None:
     rank, world, d = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+    mode = sys.argv[4] if len(sys.argv) > 4 else "all"
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{d}/pg",
                             rank=rank, world_size=world)
     try:
         m42, m24 = _mesh((4, 2)), _mesh((2, 4))
-        out = {**check_psum(m42), **check_train(m42), **check_driver(),
+        out = check_resume(m42, m24, d) if mode == "resume" else {**check_psum(m42), **check_train(m42), **check_driver(),
                "mistral": check_serving(m24, "mistral-nemo-12b", True),
                "rwkv": check_serving(m24, "rwkv6-3b", False),
                "jamba_fp32": check_serving(m24, "jamba-v0.1-52b", False,
