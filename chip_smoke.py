@@ -155,11 +155,15 @@ Phases (any failure exits non-zero; nothing is caught and turned into 0):
    engine on ``ENGINE_REQUESTS`` requests over ``ENGINE_SLOTS`` slots
    (qwen3-4b and Jamba on EP): equal tokens, each kernel once a mixer
    layer and call, no plain version on the card.
-7d. The port's twins of the LM examples and of ``scripts/smoke_archs.py``
-   (``TWINS``), each run once on the card in its own process: each must
-   exit 0; ``torch_smoke_archs.py`` must pass all ten architectures and
-   launch the flash, WKV and scan kernels with no plain version on the
-   card.  Each twin's seconds are reported.
+7d. The port's twins of the reference's twelve examples and of
+   ``scripts/smoke_archs.py`` and ``scripts/smoke_core.py`` (``TWINS``),
+   each run once on the card in its own process as a user runs it: each
+   must exit 0 and end with its launch counts, which must show no plain
+   version on the card and the kernels of ``TWIN_KERNELS`` launched
+   (``torch_smoke_archs.py``: flash, WKV and scan over all ten
+   architectures; the surrogate-MLP examples: ``mlp_forward`` and
+   ``descend_batch``).  Each twin's seconds and launch counts are
+   reported, and its output kept under ``chiprun_out/twins/``.
 8. Assertions: fused dispatches, no fallbacks, every kernel launched on its
    path, every descend launch of phases 3-5 on the resident route, no JAX
    or ``repro`` module loaded, everything on ``cuda``.
@@ -186,6 +190,8 @@ shape (``device_ms``); compose's ``library_ms`` is one broadcast
 dominance, compose and store-``add`` timings that the whole run makes,
 into ``NAME.json`` beside ``chip_smoke.json``; copied into an earlier
 tree, it times that tree's kernels the same way.
+``python3 chip_smoke.py --twins NAME`` runs only phase 1 and phase 7d (the
+twins, with their checks), into ``NAME.json``.
 
 Standard output ends with the service, comparison, planner, front-desk
 (latency by class,
@@ -356,10 +362,30 @@ MESH_DRIVER_STEPS = (10, 15)
 # ServeEngine(rules=) against the plain engine on the (1, 1) mesh
 ENGINE_SLOTS, ENGINE_NEW = 2, 8
 ENGINE_PROMPTS = (16, 48, 32, 64)  # one request each
-# phase 7d: the twins, each run once on the card in its own process
+# phase 7d: the twins of the reference's examples and scripts, each run
+# once on the card in its own process, TWIN_PARALLEL processes at a time
 TWINS = ("scripts/torch_smoke_archs.py", "examples/torch_serve_batched.py",
-         "examples/torch_train_e2e.py")
+         "examples/torch_train_e2e.py", "scripts/torch_smoke_core.py",
+         "examples/torch_quickstart.py", "examples/torch_moo_service.py",
+         "examples/torch_multistage_job.py",
+         "examples/torch_tune_spark_analytics.py",
+         "examples/torch_plan_tpu_job.py",
+         "examples/torch_adaptive_tuning.py",
+         "examples/torch_budget_tuning.py", "examples/torch_warm_restart.py",
+         "examples/torch_trace_serving.py", "examples/torch_serve_moo.py")
+# the kernels each twin's path must launch (the others run closures on the
+# scan path, a host store or the plain compose tier, and launch none)
+TWIN_KERNELS = {
+    "scripts/torch_smoke_archs.py": ("flash_attention", "rwkv6_wkv",
+                                     "mamba_scan"),
+    "examples/torch_tune_spark_analytics.py": ("mlp_forward",),
+    "examples/torch_adaptive_tuning.py": ("mlp_forward", "descend_batch"),
+    "examples/torch_budget_tuning.py": ("descend_batch",),
+    "examples/torch_warm_restart.py": ("mlp_forward", "descend_batch"),
+    "examples/torch_trace_serving.py": ("descend_batch",),
+}
 TWIN_TIMEOUT_S = 300
+TWIN_PARALLEL = 4
 
 
 def log(*args) -> None:
@@ -3853,38 +3879,56 @@ def phase_distribution(dev) -> dict:
 
 def phase_twins(dev) -> dict:
     """Phase 7d: each of ``TWINS`` once on the card, in its own process
-    (with this run's kernel build): exit code 0, its seconds;
-    ``torch_smoke_archs.py`` must pass every architecture and its last
-    line must show the flash, WKV and scan kernels launched and no plain
-    version on the card."""
+    (with this run's kernel build), ``TWIN_PARALLEL`` at a time: exit code
+    0 and its seconds; its last line, the launch counts of its run, must
+    show no plain version on the card and every kernel of
+    ``TWIN_KERNELS`` launched; ``torch_smoke_archs.py`` must pass every
+    architecture.  Each twin's output is kept under
+    ``chiprun_out/twins/``."""
     import os
+    from concurrent.futures import ThreadPoolExecutor
 
     _free()
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(
         p for p in (str(SRC), os.environ.get("PYTHONPATH")) if p)}
-    out = {}
-    for rel in TWINS:
+    logs = ROOT / "chiprun_out" / "twins"
+    logs.mkdir(parents=True, exist_ok=True)
+
+    def run(rel: str):
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, str(ROOT / rel)],
                               capture_output=True, text=True, cwd=ROOT,
                               env=env, timeout=TWIN_TIMEOUT_S)
-        seconds = time.perf_counter() - t0
-        log(f"{rel} ({seconds:.1f} s, exit {proc.returncode}):\n"
-            f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
-        if proc.returncode != 0:
-            fail(f"{rel} exited {proc.returncode}")
-        out[rel] = {"seconds": seconds}
-        if rel == "scripts/torch_smoke_archs.py":
+        return rel, proc, time.perf_counter() - t0
+
+    out = {}
+    with ThreadPoolExecutor(TWIN_PARALLEL) as pool:
+        for rel, proc, seconds in pool.map(run, TWINS):
+            (logs / f"{Path(rel).stem}.log").write_text(
+                f"{proc.stdout}\n--- stderr ---\n{proc.stderr}")
+            log(f"{rel} ({seconds:.1f} s, exit {proc.returncode}):\n"
+                f"{proc.stdout[-1500:]}{proc.stderr[-1500:]}")
+            if proc.returncode != 0:
+                fail(f"{rel} exited {proc.returncode}")
             lines = proc.stdout.strip().splitlines()
-            counts = json.loads(lines[-1])
+            try:
+                counts = json.loads(lines[-1])
+            except (IndexError, ValueError):
+                fail(f"{rel}: its last line is not the launch counts: "
+                     f"{lines[-3:]}")
             launched = counts["launches"]
-            if ("all architectures smoke-pass" not in lines[-2]
-                    or sum(line.startswith("OK ") for line in lines) != 10
-                    or not all(launched.get(k, 0) > 0 for k in (
-                        "flash_attention", "rwkv6_wkv", "mamba_scan"))
-                    or counts["plain_on_cuda"]):
+            if counts["plain_on_cuda"]:
+                fail(f"{rel}: plain versions ran on the card: "
+                     f"{counts['plain_on_cuda']}")
+            missing = [k for k in TWIN_KERNELS.get(rel, ())
+                       if launched.get(k, 0) <= 0]
+            if missing:
+                fail(f"{rel}: kernels {missing} not launched: {launched}")
+            if rel == "scripts/torch_smoke_archs.py" and (
+                    "all architectures smoke-pass" not in lines[-2]
+                    or sum(line.startswith("OK ") for line in lines) != 10):
                 fail(f"{rel}: {lines[-12:]}")
-            out[rel].update(counts)
+            out[rel] = {"seconds": seconds, **counts}
     return out
 
 
@@ -4229,6 +4273,11 @@ def main() -> int:
     if bad:
         fail(f"reference modules loaded: {bad[:5]}")
 
+    def twin_launches(name: str) -> dict:
+        """A kernel's launches by the twins of phase 7d that launched it."""
+        return {rel: r["launches"][name] for rel, r in twins.items()
+                if r["launches"].get(name, 0)}
+
     kernels = [
         {"name": "cross_dominator_counts", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/pareto_filter.cu",
@@ -4249,7 +4298,8 @@ def main() -> int:
          "kernel_route": d["route"], "ms_before": d["ms_streaming"],
          "device_ms": d["device_ms"],
          "two_shard_launches": distribution["probe_mesh"][
-             "two_shards/group"]["launches"]},
+             "two_shards/group"]["launches"],
+         "twin_launches": twin_launches("descend_batch")},
         {"name": "pairwise_compose", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/compose.cu",
          "replaces": "src/repro/kernels/compose.py:31",
@@ -4268,7 +4318,8 @@ def main() -> int:
          "plain_ms": m_gate["plain_ms"], "bound_ms": m_gate["bound_ms"],
          "bound_by": m_gate["bound_by"], "library_ms": None,
          "device_ms": m_gate["device_ms"],
-         "plain_device_ms": m_gate["plain_device_ms"]},
+         "plain_device_ms": m_gate["plain_device_ms"],
+         "twin_launches": twin_launches("mlp_forward")},
         {"name": "rwkv6_wkv", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rwkv6_wkv.cu",
          "replaces": "src/repro/kernels/rwkv6_wkv.py:27",
@@ -4564,7 +4615,30 @@ def phases_main(name: str) -> int:
     return 0
 
 
+def twins_main(name: str) -> int:
+    """``--twins NAME``: the card line, the build, then only phase 7d (the
+    twins, with its checks), timed as ``main`` times it; written as
+    ``NAME.json`` beside ``chip_smoke.json``."""
+    sys.path.insert(0, str(SRC))
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    card = phase_card()
+    t0 = time.perf_counter()
+    twins = phase_twins(torch.device("cuda", 0))
+    res = {"card": card, "twins_s": time.perf_counter() - t0,
+           "twins": twins}
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / f"{name}.json").write_text(json.dumps(res, indent=1))
+    print(json.dumps({name: res}), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--twins"]:
+        sys.exit(twins_main(sys.argv[2] if len(sys.argv) > 2 else "twins"))
     if sys.argv[1:2] == ["--timing"]:
         sys.exit(timing_main(sys.argv[2] if len(sys.argv) > 2 else "timing"))
     if sys.argv[1:2] == ["--phases"]:

@@ -1,18 +1,19 @@
 """Batched serving on the PyTorch port: the continuous-batching engine over
 a reduced model — prefill into free slots, decode all active slots each
 step, slot reuse as requests finish.  Runs on the card unless ``--device
-cpu``.
+cpu``; ends with one JSON line of the kernels' launch counts.
 
     PYTHONPATH=src python examples/torch_serve_batched.py [--device cpu]
 """
 
 import argparse
+import json
 import time
 
 import numpy as np
 
 from repro_torch.configs import get_smoke
-from repro_torch.kernels.platform import resolve_device
+from repro_torch.kernels import platform
 from repro_torch.nn import init_params
 from repro_torch.serving import Request, ServeEngine
 
@@ -42,8 +43,9 @@ def main(argv=None) -> list:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    device = resolve_device(args.device)  # raises without a card
+    device = platform.resolve_device(args.device)  # raises without a card
 
+    platform.reset_launches()
     cfg = get_smoke("qwen3-4b")
     params = init_params(cfg, seed=0, device=device)
     reqs, wall = serve(params, cfg, device)
@@ -54,6 +56,9 @@ def main(argv=None) -> list:
         print(f"  req {r.rid}: {len(r.out)} tokens: {r.out[:8]}...")
     if not all(r.done for r in reqs):
         raise SystemExit("a request did not finish")
+    print(json.dumps({"launches": platform.launch_counts(),
+                      "plain_on_cuda": platform.plain_on_cuda_counts()}),
+          flush=True)
     return reqs
 
 

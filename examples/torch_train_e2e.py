@@ -6,7 +6,8 @@ Runs a reduced qwen3 config (``--smoke``) with the full stack of
 (the mixers' kernels on the card), async checkpointing and straggler
 telemetry, and a simulated mid-run failure handled by checkpoint/restart:
 the second run resumes from the latest durable checkpoint.  Runs on the
-card unless ``--device cpu``.
+card unless ``--device cpu``; ends with one JSON line of the kernels'
+launch counts.
 
     PYTHONPATH=src python examples/torch_train_e2e.py [--steps 120] \
         [--device cpu]
@@ -18,10 +19,11 @@ resumes too):
 """
 
 import argparse
+import json
 import shutil
 import tempfile
 
-from repro_torch.kernels.platform import resolve_device
+from repro_torch.kernels import platform
 from repro_torch.launch import train as train_cli
 
 
@@ -31,8 +33,10 @@ def main(argv=None) -> dict:
     ap.add_argument("--arch", default="qwen3-4b")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    device = str(resolve_device(args.device))  # raises without a card
+    # raises without a card
+    device = str(platform.resolve_device(args.device))
 
+    platform.reset_launches()
     ckpt = tempfile.mkdtemp(prefix="repro_torch_e2e_")
     half = args.steps // 2
     common = ["--arch", args.arch, "--smoke", "--batch", "8", "--seq", "128",
@@ -52,7 +56,10 @@ def main(argv=None) -> dict:
           f"(drop {drop:.3f}) across a failure boundary")
     if drop <= 0:
         raise SystemExit("training did not make progress")
-    return {"first": r1, "resumed": r2, "drop": drop}
+    counts = {"launches": platform.launch_counts(),
+              "plain_on_cuda": platform.plain_on_cuda_counts()}
+    print(json.dumps(counts), flush=True)
+    return {"first": r1, "resumed": r2, "drop": drop, **counts}
 
 
 if __name__ == "__main__":

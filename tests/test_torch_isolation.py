@@ -1,6 +1,7 @@
 """The port stands alone: it never loads JAX or the JAX package, and its
-entry points (the twins of the LM examples and of ``smoke_archs`` among
-them) run on the card unless the caller asks for the host.
+entry points (the twins of the examples and of ``smoke_archs`` and
+``smoke_core`` among them) run on the card unless the caller asks for the
+host.
 
 The import check runs in a fresh interpreter, because this test process
 imports both packages for the parity tests.
@@ -41,9 +42,17 @@ from repro_torch.serving import ServeEngine
 from repro_torch.service import MOOService
 
 ROOT = Path(__file__).resolve().parents[1]
-# the twins of the reference's LM examples and of scripts/smoke_archs.py
+# the twins of the reference's examples and of scripts/smoke_archs.py and
+# scripts/smoke_core.py
 TWINS = ("examples/torch_train_e2e.py", "examples/torch_serve_batched.py",
-         "scripts/torch_smoke_archs.py")
+         "scripts/torch_smoke_archs.py", "scripts/torch_smoke_core.py",
+         "examples/torch_quickstart.py", "examples/torch_moo_service.py",
+         "examples/torch_multistage_job.py",
+         "examples/torch_tune_spark_analytics.py",
+         "examples/torch_plan_tpu_job.py",
+         "examples/torch_adaptive_tuning.py",
+         "examples/torch_budget_tuning.py", "examples/torch_warm_restart.py",
+         "examples/torch_trace_serving.py", "examples/torch_serve_moo.py")
 
 
 @pytest.fixture(autouse=True, scope="module")
