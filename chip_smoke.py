@@ -14,11 +14,21 @@ Phases (any failure exits non-zero; nothing is caught and turned into 0):
    surrogate width (D=13, hidden (128,)*4, k=2) on its resident route (the
    group's weights in a cluster's shared memory), timed with CUDA events
    beside its streaming route (the first port's kernel) in the same run.
+   Then the graph check (``GRAPH_CASES``): the probe executor's programs
+   are CUDA graphs on the card, a bucket's first dispatch run eagerly
+   (the warm-up) and captured, every later one replayed.  One dispatch of
+   ZDT1 (the scan route), of 64 tenants' paper-shape Spark structures
+   (the fused route) and of qwen3-4b's plan (a ``PlanModel`` closure)
+   must give its replay's result bit for bit, and the eager program the
+   replay's on one set of inputs; each is timed eager against replayed
+   (back to back, and device time from the profiler after phase 6), with
+   the capture seconds and the graph's pool MB.
 3. Main path, one task: PF-AP over the 12 Spark knobs with two random
    paper-shape MLP surrogates, through the fused descend kernel and the
    kernel path of the frontier store, then the task's recommendation; then
-   the same task again on each descend route, for its time to a frontier
-   and its descend launches' device time (CUDA events).
+   (after phase 6, profiled) the same task again on each descend route,
+   each on a fresh executor, for its time to a frontier and its descend
+   launches' device time.
 4. Main path, coalesced tenants: one task per workload of ``batch_suite()``
    (258 tenants), ten rounds of ``coalesce_step`` over ``solve_grouped``.
 5. The service: one ``MOOService`` holding the 258 tenants, the 5-stage ETL
@@ -162,8 +172,10 @@ Phases (any failure exits non-zero; nothing is caught and turned into 0):
    version on the card and the kernels of ``TWIN_KERNELS`` launched
    (``torch_smoke_archs.py``: flash, WKV and scan over all ten
    architectures; the surrogate-MLP examples: ``mlp_forward`` and
-   ``descend_batch``).  Each twin's seconds and launch counts are
-   reported, and its output kept under ``chiprun_out/twins/``.
+   ``descend_batch``).  Each twin runs under ``--twin-child``, which runs
+   it as ``__main__`` and ends its stderr with its replay check.  Each
+   twin's seconds, launch counts and ``exec:*`` counts are reported, and
+   its output kept under ``chiprun_out/twins/``.
 8. Assertions: fused dispatches, no fallbacks, every kernel launched on its
    path, every descend launch of phases 3-5 on the resident route, no JAX
    or ``repro`` module loaded, everything on ``cuda``.
@@ -191,7 +203,14 @@ dominance, compose and store-``add`` timings that the whole run makes,
 into ``NAME.json`` beside ``chip_smoke.json``; copied into an earlier
 tree, it times that tree's kernels the same way.
 ``python3 chip_smoke.py --twins NAME`` runs only phase 1 and phase 7d (the
-twins, with their checks), into ``NAME.json``.
+twins, with their checks), into ``NAME.json``; ``--graphs NAME`` only
+phase 1 and the graph check, with its cases' device times.
+
+Every MOO phase (3-5e, 5b, 5c, 6, 7d) also fails unless each executor
+dispatch on the card after a bucket's first was a graph replay: since
+the phase's reset of the launch counts, ``ROUTES["exec:eager"]`` must
+equal the programs built and ``exec:eager + exec:graph`` the dispatches
+(``replay_check``); the counts print beside the phase's launches.
 
 Standard output ends with the service, comparison, planner, front-desk
 (latency by class,
@@ -200,7 +219,9 @@ model-server and LM-serving summary lines, the decode calls' host pieces,
 the LM training line (with the card's name and power limit), the
 distribution line, the checkpoint line (7c's save and restore seconds and
 GB written, with the card's name and power limit; the sharded driver; the
-engines with rules), the twins line (7d, with every phase's seconds),
+engines with rules), the graphs line (the graph check's cases and every
+phase's ``exec:*`` counts, with the card's name and power limit), the
+twins line (7d, with every phase's seconds),
 the kernels' JSON record (seven kernels; WKV and the scan with their
 decode call's times beside the prefill's, the scan's bound counting its
 exps on the SFUs) and the device JSON line.  Without a CUDA device, or outside the repository, the
@@ -215,6 +236,7 @@ import math
 import subprocess
 import sys
 import time
+import weakref
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -386,6 +408,21 @@ TWIN_KERNELS = {
 }
 TWIN_TIMEOUT_S = 300
 TWIN_PARALLEL = 4
+# the graph check (phase 2): one dispatch a case, its warm-up (the eager
+# program) against its replay bit for bit, both timed back to back (reps
+# eager, reps replayed): ZDT1 at phase 5d's settings (the scan route), 64
+# tenants' paper-shape Spark structures at phase 2's descend shape (the
+# fused route), qwen3-4b's plan at train_4k as plan_job dispatches it (a
+# PlanModel closure on the scan route)
+GRAPH_CASES = {"zdt1": (2, 30), "spark": (10, 30), "plan_model": (1, 20)}
+GRAPH_BOXES = 4  # boxes a dispatch (PF-AP's batch of rectangles)
+
+
+# every probe executor made on the card in this process (its dispatch
+# counter, its builds by structure key, a weak reference to it) and their
+# totals at the last platform.reset_launches(): see track_executors
+_EXECUTORS: list = []
+_AT_RESET = {"dispatches": 0, "builds": 0}
 
 
 def log(*args) -> None:
@@ -414,6 +451,71 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def track_executors() -> None:
+    """Keep every ``ProbeExecutor`` made on the card from now on, and the
+    executors' totals at each ``platform.reset_launches()``, so that
+    :func:`replay_check` can hold the ``exec:*`` routes counted since the
+    last reset to the dispatches and program builds made since then."""
+    from repro_torch.exec import executor
+    from repro_torch.kernels import platform
+
+    init, reset = executor.ProbeExecutor.__init__, platform.reset_launches
+
+    def tracked_init(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        if self.device.type == "cuda":
+            _EXECUTORS.append((self._c_dispatches, self.compile_counts,
+                               weakref.ref(self)))
+
+    def tracked_reset():
+        reset()
+        _AT_RESET.update(_exec_totals())
+
+    executor.ProbeExecutor.__init__ = tracked_init
+    platform.reset_launches = tracked_reset
+
+
+def drop_graphs() -> None:
+    """Drop the programs cached by every executor of the MOO phases (the
+    default executors keep theirs for the life of the process), and with
+    them their CUDA graphs and private memory pools, before the LM phases
+    need the card's memory; then hand the memory back to the card."""
+    for _, _, ref in _EXECUTORS:
+        ex = ref()
+        if ex is not None:
+            with ex._lock:
+                ex._programs.clear()
+                ex._built_buckets.clear()
+    _free()
+
+
+def _exec_totals() -> dict:
+    return {"dispatches": sum(int(c.value) for c, _, _ in _EXECUTORS),
+            "builds": sum(sum(b.values()) for _, b, _ in _EXECUTORS)}
+
+
+def replay_check(label: str) -> dict:
+    """Since the last reset of the launch counts: every dispatch on the
+    card is counted once, as ``exec:eager`` or ``exec:graph``, and the
+    eager ones are the builds (one a bucket: its first dispatch, the
+    warm-up), so every later dispatch of a bucket was a graph replay.
+    Holds for executors without a multi-shard mesh (a shard is a program
+    run of its own).  Returns the counts, printed beside the launches."""
+    from repro_torch.kernels import platform
+
+    routes = platform.route_counts()
+    now = _exec_totals()
+    got = {"exec:eager": routes.get("exec:eager", 0),
+           "exec:graph": routes.get("exec:graph", 0),
+           "dispatches": now["dispatches"] - _AT_RESET["dispatches"],
+           "builds": now["builds"] - _AT_RESET["builds"]}
+    if (got["exec:eager"] != got["builds"]
+            or got["exec:eager"] + got["exec:graph"] != got["dispatches"]):
+        fail(f"{label}: dispatches on the card not one warm-up a bucket "
+             f"and replays after it: {got}")
+    return got
 
 
 # ---------------------------------------------------------------------------
@@ -1167,6 +1269,146 @@ def _to(tree, device):
     return tree_map(lambda t: t.to(device), tree)
 
 
+def graph_cases(dev) -> dict:
+    """The graph check's cases (``GRAPH_CASES``): label -> (a fresh
+    executor on the card, the requests of one dispatch)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import MOGDConfig, MOGDSolver, as_problem
+    from repro_torch.core import make_zdt1
+    from repro_torch.data.workloads import batch_suite
+    from repro_torch.exec import ProbeExecutor
+    from repro_torch.nn import SHAPES
+    from repro_torch.planner.planner import plan_task
+
+    def request(solver, seed):
+        rng = np.random.default_rng(seed)
+        k, B = solver.problem.k, GRAPH_BOXES
+        x0s = rng.random((B, solver.config.multistart,
+                          solver.problem.dim)).astype(np.float32)
+        lo = rng.uniform(0.0, 1.0, (B, k))
+        return solver._request(x0s, lo, lo + rng.uniform(1.0, 50.0, (B, k)),
+                               seed % k)
+
+    cases = {}
+    ex = ProbeExecutor(device=dev, mesh=None)
+    solver = MOGDSolver(make_zdt1(device=dev),
+                        MOGDConfig(steps=120, multistart=8), executor=ex,
+                        device=dev)
+    cases["zdt1"] = (ex, [request(solver, 0)])
+    ex = ProbeExecutor(device=dev, mesh=None)
+    reqs = []
+    for i, w in enumerate(batch_suite()[:64]):
+        solver = MOGDSolver(as_problem(spark_task(1 + i, dev, w)),
+                            MOGDConfig(), executor=ex, device=dev)
+        reqs.append(request(solver, i))
+    cases["spark"] = (ex, reqs)
+    ex = ProbeExecutor(device=dev, mesh=None)
+    spec, _ = plan_task(get_config("qwen3-4b"), SHAPES["train_4k"],
+                        device=dev)
+    solver = MOGDSolver(as_problem(spec), MOGDConfig(steps=80, multistart=8),
+                        executor=ex, device=dev)
+    cases["plan_model"] = (ex, [request(solver, 0)])
+    return cases
+
+
+def _ms_per_call(fn, reps: int) -> float:
+    """Mean host milliseconds of ``fn()`` (which reads its result back to
+    the host) over ``reps`` back-to-back calls (``fn`` has run before)."""
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def phase_graphs(dev, cases) -> dict:
+    """Phase 2's graph check: per case, the first dispatch (the parity gate
+    on the fused route, the warm-up, the capture) and a second dispatch of
+    the same requests (a replay) must agree bit for bit, and so must the
+    eager program and the replay on one set of inputs; then the eager
+    program and the replay (copy-in, replay, read-back) are timed back to
+    back on those inputs, and the whole dispatch (``solve_requests``)
+    replayed.  Reports the capture seconds (warm-up excluded) and the
+    graph's private pool MB."""
+    import torch
+
+    from repro_torch.exec import tree_map
+    from repro_torch.kernels import platform
+
+    out = {}
+    for label, (ex, reqs) in cases.items():
+        reps_eager, reps_replay = GRAPH_CASES[label]
+        platform.reset_launches()
+        t0 = time.perf_counter()
+        first = ex.solve_requests(reqs)
+        first_s = time.perf_counter() - t0
+        second = ex.solve_requests(reqs)
+        counts = replay_check(f"graph check {label}")
+        (prog,) = ex._programs.values()
+        (graph,) = prog.graphs.values()
+        params, rows = tree_map(torch.clone, graph.inputs)
+
+        def eager():
+            return tuple(o.cpu() for o in prog.fn(params, *rows))
+
+        def replay():
+            return graph(params, rows)
+
+        pairs = [(torch.as_tensor(a), torch.as_tensor(b))
+                 for a, b in zip(first, second)]
+        pairs += list(zip(eager(), replay()))
+        for got, want in pairs:
+            if not (torch.equal(got, want) if got.dtype == torch.bool
+                    else _same_bits(got, want)):
+                fail(f"graph check {label}: a replay differs from the "
+                     f"eager program")
+        out[label] = {
+            "bucket": list(ex.last_bucket), "fused": ex.fused_dispatches > 0,
+            "first_dispatch_s": first_s, "capture_s": graph.capture_s,
+            "instantiate_s": graph.instantiate_s,
+            "pool_mb": graph.pool_bytes / 2**20,
+            "eager_ms": _ms_per_call(eager, reps_eager),
+            "replay_ms": _ms_per_call(replay, reps_replay),
+            "dispatch_replay_ms": _ms_per_call(
+                lambda: ex.solve_requests(reqs), reps_replay),
+            "launches": platform.launch_counts(), "exec": counts}
+        log(f"graph check {label}: {out[label]}")
+    if not out["spark"]["fused"] or out["zdt1"]["fused"]:
+        fail(f"graph check: routes {({k: v['fused'] for k, v in out.items()})}")
+    return out
+
+
+def graph_device_ms(cases, graphs: dict) -> None:
+    """The profiler's device time of one eager run and of one replay of
+    each graph check case (the sum of their kernels' and copies' times),
+    and the device operations a replay runs, into ``graphs[label]``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.exec import tree_map
+
+    def profiled(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        each = [ev.time_range.end - ev.time_range.start
+                for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+        return sum(each) / 1e3, len(each)
+
+    for label, (ex, _) in cases.items():
+        (prog,) = ex._programs.values()
+        (graph,) = prog.graphs.values()
+        params, rows = tree_map(torch.clone, graph.inputs)
+        graphs[label]["eager_device_ms"], _ = profiled(
+            lambda: prog.fn(params, *rows))
+        (graphs[label]["replay_device_ms"],
+         graphs[label]["replay_kernels"]) = profiled(
+            lambda: graph(params, rows))
+
+
 # ---------------------------------------------------------------------------
 # Phases 3-4: the main path
 # ---------------------------------------------------------------------------
@@ -1281,58 +1523,60 @@ def phase_single_task(dev) -> dict:
 
 def single_task_descend(dev) -> dict:
     """The single task's time to a frontier and the device time of its
-    descend launches, by route: PF-AP on phase 3's task again, as the port
-    routes it (resident) and forced onto the streaming route.  Each launch
-    is bracketed by CUDA events on its stream (the profiler is kept out of
-    this phase: the host-bound phases after it would pay for it)."""
-    import torch
+    descend launches, by route: PF-AP on phase 3's task again, each route
+    on a fresh executor (its programs captured on that route), as the port
+    routes it (resident) and forced onto the streaming route; twice a
+    route, the second run (replays of the first's graphs) profiled.  The
+    descend kernels' device time comes from the profiler, so this runs
+    after the host-bound phases (a profiler session may leave CUPTI set up
+    for the process and slow later launches on the host)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core import MOGDConfig, ProgressiveFrontier
-    from repro_torch.kernels import native, platform
-
-    lib = native.library()
-    entries = ("mogd_descend", "mogd_descend_resident")
-    saved = {name: getattr(lib, name) for name in entries}
-    events = []
-
-    def timed(fn):
-        def call(*args):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            err = fn(*args)
-            end.record()
-            events.append((start, end))
-            return err
-        return call
+    from repro_torch.core import (
+        MOGDConfig,
+        MOGDSolver,
+        ProgressiveFrontier,
+        as_problem,
+    )
+    from repro_torch.exec import ProbeExecutor
+    from repro_torch.kernels import platform
 
     out = {}
-    try:
-        for name in entries:
-            setattr(lib, name, timed(saved[name]))
-        for label, ctx in (("resident", contextlib.nullcontext()),
-                           ("streaming", streaming_descend())):
-            with ctx:
+    for label, ctx in (("resident", contextlib.nullcontext()),
+                       ("streaming", streaming_descend())):
+        with ctx:
+            problem = as_problem(spark_task(0, dev))
+            solver = MOGDSolver(problem, MOGDConfig(),
+                                executor=ProbeExecutor(device=dev, mesh=None),
+                                device=dev)
+            walls = []
+            for run in range(2):  # the second run replays the first's
                 platform.reset_launches()
-                events.clear()
-                pf = ProgressiveFrontier(spark_task(0, dev), mode="AP",
-                                         mogd=MOGDConfig(), use_kernel=True,
-                                         device=dev)
-                t0 = time.perf_counter()
-                pf.run(n_probes=64)
-                _sync(dev)
-                wall = time.perf_counter() - t0
-            routes = platform.route_counts()
-            out[label] = {
-                "seconds": wall, "routes": routes,
-                "descend_device_s": sum(s.elapsed_time(e)
-                                        for s, e in events) / 1e3}
-            if {r for r in routes if r.startswith("descend_batch:")} != {
-                    f"descend_batch:{label}"}:
-                fail(f"single task forced to {label}: routes {routes}")
-    finally:
-        for name, fn in saved.items():
-            setattr(lib, name, fn)
+                pf = ProgressiveFrontier(problem, mode="AP",
+                                         mogd=MOGDConfig(), solver=solver,
+                                         use_kernel=True, device=dev)
+                with (profile(activities=[ProfilerActivity.CUDA]) if run
+                      else contextlib.nullcontext()) as prof:
+                    t0 = time.perf_counter()
+                    pf.run(n_probes=64)
+                    _sync(dev)
+                    walls.append(time.perf_counter() - t0)
+        routes = platform.route_counts()
+        out[label] = {
+            "first_run_s": walls[0], "seconds": walls[1], "routes": routes,
+            "exec": replay_check(f"single task forced to {label}"),
+            "descend_kernels": sum(1 for ev in prof.events()
+                                   if ev.device_type == DeviceType.CUDA
+                                   and "descend" in ev.name),
+            "descend_device_s": sum(
+                ev.time_range.end - ev.time_range.start
+                for ev in prof.events()
+                if ev.device_type == DeviceType.CUDA
+                and "descend" in ev.name) / 1e6}
+        if {r for r in routes if r.startswith("descend_batch:")} != {
+                f"descend_batch:{label}"}:
+            fail(f"single task forced to {label}: routes {routes}")
     log(f"single task by descend route: {out}")
     return out
 
@@ -1660,6 +1904,7 @@ def compare_methods(task, dev, label: str, capped: bool = False) -> dict:
                      "probes": int(res.probes),
                      "launches": platform.launch_counts(),
                      "routes": platform.route_counts(),
+                     "exec": replay_check(f"{label} {name}"),
                      "plain_on_cuda": platform.plain_on_cuda_counts(),
                      "F": F}
     log(f"{label}: " + json.dumps({n: {k: v for k, v in r.items()
@@ -1686,6 +1931,7 @@ def phase_comparison(dev) -> dict:
         weighted_sum,
     )
     from repro_torch.data.workloads import batch_problem, batch_suite
+    from repro_torch.kernels import platform
 
     task = spark_task(0, dev)
     # untimed warm-up of every method (expt1's amortized regime): first
@@ -1719,6 +1965,7 @@ def phase_comparison(dev) -> dict:
                      f"card: {r['plain_on_cuda']}")
     zdt1 = make_zdt1(device=dev)
     cfg = MOGDConfig(steps=120, multistart=8)
+    platform.reset_launches()
     t0 = time.perf_counter()
     pf = solve_pf(zdt1, mode="AP", n_probes=60, mogd=cfg, device=dev)
     ws = weighted_sum(zdt1, n_probes=10, mogd=cfg, device=dev)
@@ -1726,7 +1973,8 @@ def phase_comparison(dev) -> dict:
     zref = np.array([1.5, 1.5])
     z = {"pf_points": len(pf.F), "ws_points": len(ws.F),
          "pf_hv": hypervolume_2d(pf.F, zref),
-         "ws_hv": hypervolume_2d(ws.F, zref), "seconds": zdt1_s}
+         "ws_hv": hypervolume_2d(ws.F, zref), "seconds": zdt1_s,
+         "exec": replay_check("comparison zdt1")}
     log(f"comparison zdt1: {z}")
     if not (z["pf_points"] >= z["ws_points"]
             and z["pf_hv"] >= z["ws_hv"] - 0.05):
@@ -1826,6 +2074,7 @@ def phase_planner(dev) -> dict:
         torch.cuda.synchronize()
         return rec, time.perf_counter() - t0
 
+    platform.reset_launches()
     plans, recs = {}, {}
     cells = [(a, "train_4k") for a in PLAN_ARCHS] + list(PLAN_SHAPES)
     for arch, shape in cells:
@@ -1867,6 +2116,7 @@ def phase_planner(dev) -> dict:
         fail(f"incremental plan: the frontier shrank from "
              f"{len(first.frontier_F)} to {len(more.frontier_F)} points")
     job = expt5_job(8, 8, dev)
+    exec_plans = replay_check("planner plan_job")
     platform.reset_launches()
     dag, dag_s = timed(lambda: plan_dag(job, use_kernel=True, device=dev))
     dag_launches = platform.launch_counts()
@@ -1903,7 +2153,9 @@ def phase_planner(dev) -> dict:
            "plan_dag": {"seconds": dag_s, "points": len(dag.frontier_F),
                         "probes": dag.probes, "launches": dag_launches,
                         "routes": platform.route_counts()},
-           "ingest": {"rows": n + n2, "traces": traces}}
+           "ingest": {"rows": n + n2, "traces": traces},
+           "exec": {"plan_job": exec_plans,
+                    "plan_dag": replay_check("planner plan_dag")}}
     log(f"planner: {out}")
     return out
 
@@ -3317,6 +3569,8 @@ def _probe_mesh_runs(dev) -> dict:
                 "res": res, "seconds": seconds,
                 "launches": platform.launch_counts().get("descend_batch", 0),
                 "plain": platform.plain_on_cuda_counts(),
+                "exec": {k: n for k, n in platform.route_counts().items()
+                         if k.startswith("exec:")},
                 "bucket": list(ex.last_bucket),
                 "sharded_axis": ex.last_shard_axis,
                 "sharded_dispatches": ex.sharded_dispatches}
@@ -3896,7 +4150,8 @@ def phase_twins(dev) -> dict:
 
     def run(rel: str):
         t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, str(ROOT / rel)],
+        proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                               "--twin-child", rel],
                               capture_output=True, text=True, cwd=ROOT,
                               env=env, timeout=TWIN_TIMEOUT_S)
         return rel, proc, time.perf_counter() - t0
@@ -3928,8 +4183,42 @@ def phase_twins(dev) -> dict:
                     "all architectures smoke-pass" not in lines[-2]
                     or sum(line.startswith("OK ") for line in lines) != 10):
                 fail(f"{rel}: {lines[-12:]}")
-            out[rel] = {"seconds": seconds, **counts}
+            tagged = [line for line in proc.stderr.splitlines()
+                      if line.startswith(TWIN_EXEC_TAG)]
+            if not tagged:
+                fail(f"{rel}: no {TWIN_EXEC_TAG!r} line")
+            execs = json.loads(tagged[-1][len(TWIN_EXEC_TAG):])
+            if "failed" in execs:
+                fail(f"{rel}: {execs['failed']}")
+            out[rel] = {"seconds": seconds, **counts, "exec": execs}
     return out
+
+
+# the line a twin's wrapper (--twin-child) ends its stderr with
+TWIN_EXEC_TAG = "twin exec: "
+
+
+def twin_child(rel: str) -> int:
+    """``--twin-child REL``: run the twin ``REL`` as ``python REL`` runs it
+    (``__main__``, its own argv), with :func:`track_executors` on; then
+    :func:`replay_check` since the twin's last reset of the launch counts
+    as the last line of stderr (``TWIN_EXEC_TAG`` and JSON; a failed check
+    as ``{"failed": ...}``, which phase 7d reports)."""
+    import runpy
+
+    sys.path.insert(0, str(SRC))
+    track_executors()
+    sys.argv = [str(ROOT / rel)]
+    try:
+        runpy.run_path(str(ROOT / rel), run_name="__main__")
+    finally:
+        try:
+            got = replay_check(rel)
+        except SystemExit:  # fail() printed the reason
+            got = {"failed": "dispatches on the card not one warm-up a "
+                             "bucket and replays after it"}
+        print(TWIN_EXEC_TAG + json.dumps(got), file=sys.stderr, flush=True)
+    return 0
 
 
 def _same_state(got, want, label: str, path: str = "") -> int:
@@ -4092,6 +4381,7 @@ def main() -> int:
         phase_s[name] = time.perf_counter() - t_start - sum(phase_s.values())
         log(f"phase {name}: {phase_s[name]:.1f} s")
 
+    track_executors()
     card = phase_card()
     mark("card_and_build")
     dev = torch.device("cuda", 0)
@@ -4111,6 +4401,10 @@ def main() -> int:
     c_err = phase_compose(dev)
     m_chk = phase_mlp(dev)
     mark("kernels")
+    # phase 2's graph check: each route's program eager against its replay
+    cases = graph_cases(dev)
+    graphs = phase_graphs(dev, cases)
+    mark("graphs")
 
     # phase 3: the main path, one task (launch counts of this run only)
     platform.reset_launches()
@@ -4118,8 +4412,8 @@ def main() -> int:
     launches = platform.launch_counts()
     routes = {"single_task": platform.route_counts()}
     plain = {"single_task": platform.plain_on_cuda_counts()}
-    log(f"main-path launches: {launches}")
-    single["by_route"] = single_task_descend(dev)
+    execs = {"single_task": replay_check("single task")}
+    log(f"main-path launches: {launches}; {execs['single_task']}")
     mark("single_task")
     # phase 4: coalesced tenants (counted separately)
     platform.reset_launches()
@@ -4127,7 +4421,8 @@ def main() -> int:
     tenant_launches = platform.launch_counts()
     routes["tenants"] = platform.route_counts()
     plain["tenants"] = platform.plain_on_cuda_counts()
-    log(f"tenant-path launches: {tenant_launches}")
+    execs["tenants"] = replay_check("tenants")
+    log(f"tenant-path launches: {tenant_launches}; {execs['tenants']}")
     mark("tenants")
     # phase 5: the service with DAG jobs (counted separately)
     platform.reset_launches()
@@ -4135,6 +4430,7 @@ def main() -> int:
     service_launches = platform.launch_counts()
     routes["service"] = platform.route_counts()
     plain["service"] = platform.plain_on_cuda_counts()
+    execs["service"] = replay_check("service")
     log(f"service-path launches: {service_launches}; routes: {routes}")
     # the compose kernel's time at a shape of its path: the ETL job's
     # extract x transform_a stage frontiers
@@ -4159,8 +4455,9 @@ def main() -> int:
     desk = phase_frontdesk(dev, vault_root / "frontiers")
     fd_launches = platform.launch_counts()
     fd_plain = platform.plain_on_cuda_counts()
-    log(f"front-desk launches: {fd_launches}; plain versions on the card: "
-        f"{fd_plain}")
+    execs["frontdesk"] = replay_check("front desk")
+    log(f"front-desk launches: {fd_launches}; {execs['frontdesk']}; plain "
+        f"versions on the card: {fd_plain}")
     for name in ("descend_batch", "cross_dominator_counts"):
         if fd_launches.get(name, 0) <= 0:
             fail(f"kernel {name} was not launched from the front desk's "
@@ -4174,6 +4471,7 @@ def main() -> int:
                         desk.pop("_closed"))
     vault["launches"] = platform.launch_counts()
     vault_plain = platform.plain_on_cuda_counts()
+    execs["vault"] = replay_check("vault")
     if vault_plain:
         fail(f"vault: plain versions ran on the card: {vault_plain}")
     mark("vault")
@@ -4182,8 +4480,9 @@ def main() -> int:
     ms = phase_modelserver(dev, vault_root / "models")
     ms_launches = platform.launch_counts()
     ms_plain = platform.plain_on_cuda_counts()
-    log(f"model-server-path launches: {ms_launches}; plain versions on the "
-        f"card: {ms_plain}")
+    execs["modelserver"] = replay_check("model server")
+    log(f"model-server-path launches: {ms_launches}; "
+        f"{execs['modelserver']}; plain versions on the card: {ms_plain}")
     if ms_launches.get("mlp_forward", 0) <= 0:
         fail("kernel mlp_forward was not launched on the model-server path")
     if ms_plain.get("mlp_forward", 0) != 0:
@@ -4211,8 +4510,13 @@ def main() -> int:
     for timing in (c_main, c_big):
         timing.update(compose_device_ms(dev, *timing["shape"]))
     d.update(descend_device_ms(dev))
+    graph_device_ms(cases, graphs)
     log(f"device times: pareto {p_times}; compose {c_main}, {c_big}; "
-        f"descend {d['device_ms']}")
+        f"descend {d['device_ms']}; graphs {graphs}")
+    del cases
+    # phase 3's task on each descend route (profiled, so after phase 6)
+    single["by_route"] = single_task_descend(dev)
+    drop_graphs()
     mark("device_times")
     # phase 7: LM serving (counted per model inside)
     lm = phase_lm(dev)
@@ -4391,7 +4695,7 @@ def main() -> int:
                             "service": service_launches,
                             "frontdesk": fd_launches,
                             "modelserver": ms_launches},
-               "routes": routes,
+               "routes": routes, "exec": execs, "graphs": graphs,
                "pareto": p_times, "store_add_ms": store_add,
                "descend": d,
                "compose_path": c_main, "compose_4096": c_big,
@@ -4515,6 +4819,8 @@ def main() -> int:
                 ("jamba-v0.1-52b (ep)",
                  distribution["moe"]["jamba-v0.1-52b (ep)"]))}}}),
         flush=True)
+    print(json.dumps({"graphs": {"card": card, "cases": graphs,
+                                 "exec": execs}}), flush=True)
     print(json.dumps({"twins": twins, "phase_s": phase_s}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4615,6 +4921,31 @@ def phases_main(name: str) -> int:
     return 0
 
 
+def graphs_main(name: str) -> int:
+    """``--graphs NAME``: the card line, the build, then only phase 2's
+    graph check with its cases' device times, as ``main`` makes them;
+    written as ``NAME.json`` beside ``chip_smoke.json``."""
+    sys.path.insert(0, str(SRC))
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    track_executors()
+    card = phase_card()
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    cases = graph_cases(dev)
+    graphs = phase_graphs(dev, cases)
+    res = {"card": card, "graphs_s": time.perf_counter() - t0}
+    graph_device_ms(cases, graphs)
+    res["graphs"] = graphs
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / f"{name}.json").write_text(json.dumps(res, indent=1))
+    print(json.dumps({name: res}), flush=True)
+    return 0
+
+
 def twins_main(name: str) -> int:
     """``--twins NAME``: the card line, the build, then only phase 7d (the
     twins, with its checks), timed as ``main`` times it; written as
@@ -4637,8 +4968,12 @@ def twins_main(name: str) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--twin-child"]:
+        sys.exit(twin_child(sys.argv[2]))
     if sys.argv[1:2] == ["--twins"]:
         sys.exit(twins_main(sys.argv[2] if len(sys.argv) > 2 else "twins"))
+    if sys.argv[1:2] == ["--graphs"]:
+        sys.exit(graphs_main(sys.argv[2] if len(sys.argv) > 2 else "graphs"))
     if sys.argv[1:2] == ["--timing"]:
         sys.exit(timing_main(sys.argv[2] if len(sys.argv) > 2 else "timing"))
     if sys.argv[1:2] == ["--phases"]:

@@ -198,9 +198,11 @@ class SpaceEncoder:
         for spec, off in zip(self.specs, self._offsets):
             block = x[..., off : off + spec.width]
             if spec.kind == "categorical":
-                hard = torch.nn.functional.one_hot(
-                    torch.argmax(block, dim=-1), spec.width).to(block.dtype)
-                parts.append(hard)
+                # the argmax's one-hot by a comparison made on the
+                # device (F.one_hot reads its classes back to check them)
+                best = torch.argmax(block, dim=-1, keepdim=True)
+                parts.append((best == torch.arange(
+                    spec.width, device=block.device)).to(block.dtype))
             elif spec.kind == "boolean":
                 parts.append(torch.round(block))
             elif spec.kind == "integer":

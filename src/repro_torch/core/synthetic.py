@@ -25,7 +25,7 @@ def _zdt1_obj(x):
     f1 = x[0]
     g = 1.0 + 9.0 * torch.mean(x[1:])
     # jnp.clip(f1 / g, 1e-12, None): maximum splits a tie's gradient as JAX
-    f2 = g * (1.0 - torch.sqrt(torch.maximum(f1 / g, x.new_tensor(1e-12))))
+    f2 = g * (1.0 - torch.sqrt(torch.maximum(f1 / g, x.new_full((), 1e-12))))
     return torch.stack([f1, f2])
 
 

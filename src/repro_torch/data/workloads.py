@@ -195,7 +195,7 @@ def batch_latency(cfg: dict, w: BatchWorkload) -> Array:
     # but adds duplicate-task cost.
     n_tasks = torch.maximum(par, cfg["shuffle_partitions"])
     t_sched = n_tasks * (w.task_overhead_ms / 1000.0) / torch.maximum(
-        execs, execs.new_tensor(1.0))
+        execs, execs.new_full((), 1.0))
     spec_gain = 1.0 - 0.12 * w.skew * cfg["speculation"]
     t_sched = t_sched * (1.0 + 0.05 * cfg["speculation"])
 
@@ -221,11 +221,11 @@ def streaming_metrics(cfg: dict, w: StreamingWorkload):
     )
     capacity = total_cores * 1e6 / per_rec  # rec/s
     rho = clip(w.rate_rec_s / capacity, 0.0, 0.999)
-    throughput = torch.minimum(capacity, capacity.new_tensor(w.rate_rec_s))
+    throughput = torch.minimum(capacity, capacity.new_full((), w.rate_rec_s))
     # M/M/1-flavored queueing + windowing + state paging if memory short.
     mem = cfg["mem_per_executor_gb"] * execs * cfg["memory_fraction"]
     paging = torch.nn.functional.softplus((w.state_gb - mem) * 1.5) / 1.5
-    base = per_rec * 1e-6 / torch.maximum(1.0 - rho, rho.new_tensor(1e-3))
+    base = per_rec * 1e-6 / torch.maximum(1.0 - rho, rho.new_full((), 1e-3))
     latency = base + 0.05 * w.window_s + 0.5 * paging
     return latency, throughput
 

@@ -21,9 +21,16 @@ Consequences:
   keep the scan path, which differentiates the Eq. 4 loss with autograd
   (``torch.func.grad`` under ``torch.func.vmap``).
 
-PyTorch runs eagerly, so a "program" here is a Python closure built once
-per structure and bucket; the cache, the build counts and the ``stats()``
-telemetry keep the reference's meaning.
+A "program" is built once per structure and bucket, as the reference's
+``jax.jit`` is; the cache, the build counts and the ``stats()`` telemetry
+keep the reference's meaning.  On the host it is a Python closure run
+eagerly at every dispatch.  On a CUDA device it is that closure captured
+as a CUDA graph (:class:`_Graph`): the bucket's first dispatch runs the
+closure eagerly (the warm-up, whose result answers it) and then captures
+it over static input buffers; every later dispatch copies its inputs
+into those buffers and replays the graph.  A closure that cannot be
+captured (one that syncs with the host) raises; it never runs eagerly in
+the graph's place.
 
 A probe mesh (``distributed.ProbeMesh``) splits each padded batch along
 its group or row axis across the mesh's devices, as the reference's
@@ -37,6 +44,8 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import threading
+import time
+import traceback
 from typing import Any, Callable
 
 import numpy as np
@@ -45,6 +54,7 @@ from torch.func import grad, vmap
 
 from ..distributed.sharding import choose_probe_partition, probe_mesh
 from ..kernels.mogd_descend import _adam_update
+from ..kernels import platform
 from ..kernels.platform import resolve_device
 from ..kernels.ref import clip
 
@@ -63,7 +73,7 @@ def _eq4_loss(f: torch.Tensor, lo, hi, target, penalty: float,
     clip of the tie term splits its subgradient at a bound as ``jnp.clip``
     does (see ``kernels.ref.clip``)."""
     zero = f.new_zeros(())
-    width = torch.maximum(hi - lo, f.new_tensor(1e-12))
+    width = torch.maximum(hi - lo, f.new_full((), 1e-12))
     fhat = (f - lo) / width
     onehot = (torch.arange(f.shape[-1], device=f.device) == target).to(
         fhat.dtype)
@@ -85,6 +95,14 @@ def _bound_penalty(f, ulo, uhi, uscale, penalty: float) -> torch.Tensor:
                        zero).sum()
 
 
+def step_counter(steps: int, device) -> torch.Tensor:
+    """The 1-based Adam step numbers ``1, ..., steps`` as one ``(steps,)``
+    fp32 tensor, made on ``device`` by a kernel: element ``i`` equals
+    ``torch.tensor(i + 1.0)`` bit for bit, and no step copies a number
+    from the host (a captured program cannot)."""
+    return torch.arange(1, steps + 1, dtype=torch.float32, device=device)
+
+
 def adam_project_descend(loss_fn: Callable, x0: torch.Tensor, cfg) -> torch.Tensor:
     """Multi-step Adam descent with cosine LR decay and projection onto
     ``[0,1]^D`` (§4.2.1), from one start ``x0: (D,)``; the gradient comes
@@ -93,11 +111,11 @@ def adam_project_descend(loss_fn: Callable, x0: torch.Tensor, cfg) -> torch.Tens
     x = x0
     m = torch.zeros_like(x0)
     v = torch.zeros_like(x0)
+    ts = step_counter(cfg.steps, x0.device)
     for step in range(cfg.steps):
-        t = torch.tensor(step + 1.0, dtype=torch.float32, device=x0.device)
         g = grad_fn(x)
         g = torch.where(torch.isfinite(g), g, torch.zeros_like(g))
-        x, m, v = _adam_update(x, m, v, g, t, cfg)
+        x, m, v = _adam_update(x, m, v, g, ts[step], cfg)
     return x
 
 
@@ -194,7 +212,8 @@ def orient_program(program: ParamProgram, signs) -> ParamProgram:
 
     def apply(p, x):
         out = inner(p, x)
-        return out.new_tensor(signs) * out
+        # the signs are filled on the device, never copied from the host
+        return torch.stack([out.new_full((), s) for s in signs]) * out
 
     return dataclasses.replace(
         program, apply=apply, structure=("orient", signs, program.structure))
@@ -632,18 +651,22 @@ class ProbeExecutor:
         eff_gRS = vmap(vmap(vmap(eff, in_dims=(None, None, 0)),
                             in_dims=(None, 0, 0)), in_dims=(0, 0, 0))
 
+        counters = {}  # device -> step_counter, made by the first run
+
         def scan_descend(params, x0s, los, his, ulo, uhi, uscale, alphas,
                          targets):
+            ts = counters.get(x0s.device)
+            if ts is None:
+                ts = counters[x0s.device] = step_counter(cfg.steps,
+                                                         x0s.device)
             x = x0s
             m = torch.zeros_like(x0s)
             v = torch.zeros_like(x0s)
             for step in range(cfg.steps):
-                t = torch.tensor(step + 1.0, dtype=torch.float32,
-                                 device=x0s.device)
                 g = row_grad(x, params, los, his, ulo, uhi, uscale, alphas,
                              targets)
                 g = torch.where(torch.isfinite(g), g, torch.zeros_like(g))
-                x, m, v = _adam_update(x, m, v, g, t, cfg)
+                x, m, v = _adam_update(x, m, v, g, ts[step], cfg)
             return x
 
         def score(params, finals, los, his, ulo, uhi, uscale, alphas,
@@ -690,32 +713,12 @@ class ProbeExecutor:
                     return score(params, finals, los, his, ulo, uhi, uscale,
                                  alphas, targets)
 
+        shards = None
         if axis is not None:
-            batched = self._sharded(batched, axis)
+            shards = (tuple(self.mesh.devices), 0 if axis == "group" else 1)
         self.compile_counts[skey] = self.compile_counts.get(skey, 0) + 1
         self._c_compiles.inc()
-        return batched
-
-    def _sharded(self, batched: Callable, axis: str) -> Callable:
-        """``batched`` split across the mesh's devices: shard ``i`` of the
-        group axis (params and rows together) or of the row axis (every
-        group's params on every device) runs on ``mesh.devices[i]``, and
-        the shards' results are concatenated on the executor's device."""
-        devices = self.mesh.devices
-        n = len(devices)
-        dim = 0 if axis == "group" else 1
-
-        def run(params, *rows):
-            outs = []
-            for i, dev in enumerate(devices):
-                take = lambda a: a.chunk(n, dim)[i].to(dev)  # noqa: E731
-                p_i = tree_map(take if axis == "group"
-                               else (lambda a: a.to(dev)), params)
-                outs.append(batched(p_i, *(take(r) for r in rows)))
-            return tuple(torch.cat([o[j].to(self.device) for o in outs],
-                                   dim=dim) for j in range(3))
-
-        return run
+        return _Program(batched, skey, shards, clock=self.obs.tracer.now)
 
     # -- assembly ----------------------------------------------------------
     def _params_to(self, params):
@@ -786,10 +789,11 @@ class ProbeExecutor:
             Gp, Rp, axis = self._choose_buckets(base_key, G, R)
             key = (*base_key, Gp, Rp)
             fn = self._programs.pop(key, None)  # re-insert as newest (LRU)
+            tc0 = None  # a build's start, on the card closed by its capture
             if fn is None:
                 tc0 = tr.now()
                 fn = self._build(r0, skey, plan, axis)
-                if tr.enabled:
+                if tr.enabled and not _captures(self.device):
                     tr.record_span(
                         "exec.compile", tc0, tr.now(), cat="exec",
                         parent=parent_span,
@@ -816,8 +820,20 @@ class ProbeExecutor:
         rows = [torch.as_tensor(r, dtype=torch.int64 if i == N_ROW_FIELDS - 1
                                 else torch.float32, device=self.device)
                 for i, r in enumerate(rows)]
+
+        def on_compile(t0, t1, graph):  # the build, warm-up and capture
+            if tr.enabled:
+                tr.record_span(
+                    "exec.compile", t0 if tc0 is None else tc0, t1,
+                    cat="exec", parent=parent_span,
+                    args={"bucket": [Gp, Rp], "structure": str(skey),
+                          "device": str(graph.device),
+                          "capture_s": graph.capture_s,
+                          "instantiate_s": graph.instantiate_s,
+                          "pool_mb": graph.pool_bytes / 2**20})
+
         td0 = tr.now()
-        x, f, feas = fn(params, *rows)
+        x, f, feas = fn(params, *rows, on_compile=on_compile)
         x, f, feas = x.cpu().numpy(), f.cpu().numpy(), feas.cpu().numpy()
         if tr.enabled:
             tr.record_span(
@@ -875,6 +891,201 @@ class ProbeExecutor:
                 return fn(params, torch.zeros((1, *X.shape[1:]),
                                               device=self.device))[:0]
             return fn(params, X)
+
+
+# ---------------------------------------------------------------------------
+# Programs on the card: CUDA graphs, captured once per bucket and device
+# ---------------------------------------------------------------------------
+
+# one warm-up and capture at a time in the process, on one side stream a
+# device: first dispatches are rare (one a bucket and device), a stream
+# that is capturing must carry no other thread's work, and every stream a
+# program's GEMMs run on keeps a cuBLAS workspace for good (a stream a
+# graph, from PyTorch's pool of 32, held about 1.2 GB on an H100)
+_CAPTURE_LOCK = threading.Lock()
+_SIDE_STREAMS: dict = {}  # device -> its warm-up and capture stream
+
+
+def _captures(device: torch.device) -> bool:
+    """Whether a program runs as a CUDA graph on ``device``: on a CUDA
+    device, as the kernel wrappers launch their kernels there."""
+    return device.type == "cuda"
+
+
+class _Program:
+    """One built solve program, ``fn(params, *rows) -> (x, f, feasible)``.
+
+    On the host ``fn`` runs eagerly.  On a CUDA device it runs through
+    that device's :class:`_Graph`, made at the first dispatch there, so
+    the shards of a probe mesh that share a card take one graph in turn.
+    ``shards`` is None (one program over the whole batch) or ``(devices,
+    dim)``: the batch split along ``dim`` (0 the groups with their params,
+    1 the rows, every group's params on every device), shard ``i`` run on
+    ``devices[i]`` and the results concatenated on the host.
+    ``on_compile(t0, t1, graph)`` is told of a capture (on ``clock``)."""
+
+    def __init__(self, fn: Callable, skey: tuple, shards=None,
+                 clock: Callable[[], float] = time.perf_counter):
+        self.fn = fn
+        self.skey = skey
+        self.shards = shards
+        self.clock = clock
+        self.graphs: dict[torch.device, _Graph] = {}
+        self._lock = threading.Lock()
+
+    def __call__(self, params, *rows, on_compile=None):
+        if self.shards is None:
+            return self._run(params, rows, on_compile)
+        devices, dim = self.shards
+        n = len(devices)
+        outs = []
+        for i, dev in enumerate(devices):
+            take = lambda a: a.chunk(n, dim)[i].to(dev)  # noqa: E731
+            p_i = tree_map(take if dim == 0 else (lambda a: a.to(dev)),
+                           params)
+            outs.append(self._run(p_i, tuple(take(r) for r in rows),
+                                  on_compile))
+        return tuple(torch.cat([o[j].cpu() for o in outs], dim=dim)
+                     for j in range(3))
+
+    def _run(self, params, rows, on_compile):
+        device = rows[0].device
+        if not _captures(device):
+            return self.fn(params, *rows)
+        with self._lock:
+            graph = self.graphs.get(device)
+            if graph is None:
+                graph = self.graphs[device] = _Graph(self.fn, self.skey,
+                                                     device, self.clock)
+        return graph(params, rows, on_compile)
+
+
+class _Graph:
+    """A program captured as a CUDA graph on one device.
+
+    The first call runs the program eagerly on the device's side stream:
+    the warm-up, which builds the kernels' library, makes the cuBLAS
+    handles and warms autograd, and whose result answers the call.  It
+    then captures the same program on that stream over static copies of
+    the call's inputs, into a memory pool of the graph's own.  Every later
+    call copies its inputs into those buffers (``copy_``), replays the
+    graph and reads the three outputs back to the host.  One lock covers
+    all of that, so two threads never capture one graph twice and never
+    overwrite each other's inputs or outputs.
+
+    Counting: the warm-up counts its launches as they run and adds one to
+    ``platform.ROUTES["exec:eager"]``; the capture's counts are deferred
+    (``platform.deferred_counts``) and added at each replay with one to
+    ``ROUTES["exec:graph"]``.  A capture that fails (a program that syncs
+    with the host) raises with the structure and the line it stopped at;
+    the program never runs eagerly in the graph's place."""
+
+    def __init__(self, fn: Callable, skey: tuple, device: torch.device,
+                 clock: Callable[[], float] = time.perf_counter):
+        self.fn = fn
+        self.skey = skey
+        self.device = device
+        self.clock = clock
+        self.lock = threading.Lock()
+        self.graph = None  # torch.cuda.CUDAGraph once captured
+        self.inputs = None  # (params, rows): the static input buffers
+        self.outputs = None
+        self.tally = ()  # the counts one replay adds
+        self.capture_s = 0.0  # recording and instantiation
+        self.instantiate_s = 0.0  # capture_end: ending, instantiating
+
+    def __call__(self, params, rows, on_compile=None):
+        with self.lock:
+            if self.graph is None:
+                return self._first(params, rows, on_compile)
+            tree_map(_copy_into, self.inputs, (params, tuple(rows)))
+            self.graph.replay()
+            platform.add_counts(self.tally)
+            platform.ROUTES["exec:graph"] += 1
+            # copies, never the buffers the next replay overwrites
+            return tuple(o.to("cpu", copy=True) for o in self.outputs)
+
+    def _first(self, params, rows, on_compile):
+        t0 = self.clock()
+        with _CAPTURE_LOCK:
+            stream = _SIDE_STREAMS.get(self.device)
+            if stream is None:
+                stream = _SIDE_STREAMS[self.device] = torch.cuda.Stream(
+                    self.device)
+            stream.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(stream):
+                out = tuple(o.cpu() for o in self.fn(params, *rows))
+            platform.ROUTES["exec:eager"] += 1
+            self._capture(params, rows, stream)
+        if on_compile is not None:
+            on_compile(t0, self.clock(), self)
+        return out
+
+    def _capture(self, params, rows, stream) -> None:
+        """Capture the program on ``stream`` over static copies of the
+        inputs; its wrappers' counts go to the replays' tally."""
+        inputs = tree_map(torch.clone, (params, tuple(rows)))
+        graph = torch.cuda.CUDAGraph()
+        with platform.deferred_counts() as tally:
+            c0 = time.perf_counter()
+            try:
+                # capture_begin/end, not torch.cuda.graph: that context
+                # also syncs the device and empties the allocator's cache,
+                # which every later allocation of the process would pay
+                with torch.cuda.stream(stream):
+                    graph.capture_begin(capture_error_mode="thread_local")
+                    try:
+                        outputs = self.fn(inputs[0], *inputs[1])
+                    finally:
+                        e0 = time.perf_counter()
+                        graph.capture_end()
+            except RuntimeError as exc:
+                raise RuntimeError(
+                    f"CUDA graph capture of structure {self.skey!r} on "
+                    f"{self.device} failed at {_capture_site(exc)}: "
+                    f"{exc}") from exc
+            self.capture_s = time.perf_counter() - c0
+            self.instantiate_s = time.perf_counter() - e0
+        self.graph, self.inputs, self.outputs = graph, inputs, outputs
+        self.tally = tuple(tally)
+
+    @property
+    def pool_bytes(self) -> int:
+        """Bytes of the graph's private memory pool (0 before capture);
+        read from the allocator's snapshot when asked, never on the
+        dispatch path."""
+        return 0 if self.graph is None else _pool_bytes(self.graph,
+                                                        self.device)
+
+
+def _copy_into(dst: torch.Tensor, src: torch.Tensor) -> None:
+    if dst.shape != src.shape:
+        raise ValueError(f"a captured program's input is {tuple(dst.shape)}"
+                         f", this dispatch's {tuple(src.shape)}")
+    dst.copy_(src)
+
+
+def _capture_site(exc: BaseException) -> str:
+    """``file:line: code`` of the innermost frame outside ``torch`` where
+    the first exception of ``exc``'s chain was raised (the op a capture
+    stopped at; a failed capture also fails its end, which chains it)."""
+    while exc.__context__ is not None:
+        exc = exc.__context__
+    frames = [f for f in traceback.extract_tb(exc.__traceback__)
+              if "/torch/" not in f.filename.replace("\\", "/")
+              and f.name != "__torch_dispatch__"]
+    if not frames:
+        return "an unknown line"
+    f = frames[-1]
+    return f"{f.filename}:{f.lineno}: {f.line}"
+
+
+def _pool_bytes(graph, device: torch.device) -> int:
+    """Bytes of the segments of ``graph``'s private memory pool."""
+    pool = tuple(graph.pool())
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if seg.get("device") == device.index
+               and tuple(seg.get("segment_pool_id") or ()) == pool)
 
 
 # ---------------------------------------------------------------------------

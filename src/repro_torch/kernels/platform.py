@@ -26,11 +26,18 @@
   through the plain version and differentiates that
   (:func:`plain_backward`); each such recompute on a CUDA tensor is counted
   in :data:`PLAIN_BACKWARD_ON_CUDA`, apart from :data:`PLAIN_ON_CUDA`.
+* **Captured launches.**  A wrapper called while a CUDA graph is captured
+  launches nothing yet.  Inside :func:`deferred_counts` the counts that
+  the calling thread adds go to the block's tally instead (other threads
+  count as ever), and :func:`add_counts` adds that tally again at each
+  replay of the graph, so the counts stay the kernels that ran.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
+import threading
 
 import torch
 
@@ -38,14 +45,33 @@ torch.backends.cuda.matmul.allow_tf32 = False
 
 HOPPER = (9, 0)
 
+# the tally of the deferred_counts() block a thread is in, if any
+_DEFERRED = threading.local()
+
+
+class _Counts(collections.Counter):
+    """A launch counter whose updates on a thread inside
+    :func:`deferred_counts` go to that block's tally: ``counts[key] += n``
+    there records ``(counts, key, n)`` and leaves the count as it was."""
+
+    def __setitem__(self, key, value):
+        tally = getattr(_DEFERRED, "tally", None)
+        if tally is None:
+            super().__setitem__(key, value)
+        else:
+            tally.append((self, key, value - self[key]))
+
+
 # kernel name -> launches since the last reset_launches()
-LAUNCHES: collections.Counter = collections.Counter()
+LAUNCHES: collections.Counter = _Counts()
 # plain-version name -> calls on a CUDA tensor since the last reset
-PLAIN_ON_CUDA: collections.Counter = collections.Counter()
+PLAIN_ON_CUDA: collections.Counter = _Counts()
 # plain-version name -> backward recomputes on a CUDA tensor
-PLAIN_BACKWARD_ON_CUDA: collections.Counter = collections.Counter()
-# "<kernel>:<route>" -> launches by that route
-ROUTES: collections.Counter = collections.Counter()
+PLAIN_BACKWARD_ON_CUDA: collections.Counter = _Counts()
+# "<kernel>:<route>" -> launches by that route; the probe executor adds
+# "exec:eager" (a program run eagerly on the card: the warm-up at a
+# bucket's first dispatch) and "exec:graph" (a captured program replayed)
+ROUTES: collections.Counter = _Counts()
 # CUDA device indices found to be Hopper cards
 _ON_HOPPER: set[int] = set()
 # CUDA device index -> its number of SMs
@@ -117,6 +143,27 @@ def reset_launches() -> None:
     PLAIN_ON_CUDA.clear()
     PLAIN_BACKWARD_ON_CUDA.clear()
     ROUTES.clear()
+
+
+@contextlib.contextmanager
+def deferred_counts():
+    """Divert the counts this thread adds inside the block into a tally,
+    a list of ``(counter, key, n)`` that the block yields: the launches of
+    a CUDA graph's capture, which runs nothing.  Blocks nest."""
+    outer = getattr(_DEFERRED, "tally", None)
+    tally = []
+    _DEFERRED.tally = tally
+    try:
+        yield tally
+    finally:
+        _DEFERRED.tally = outer
+
+
+def add_counts(tally) -> None:
+    """Add a :func:`deferred_counts` tally to its counters (once per replay
+    of the graph it was captured with)."""
+    for counter, key, n in tally:
+        counter[key] += n
 
 
 def launch_counts() -> dict:

@@ -34,7 +34,8 @@ def clip(x, lo: float, hi: float):
 
     ``torch.clamp`` passes a gradient of 1 at a bound; ``maximum`` and
     ``minimum`` split it as JAX does."""
-    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+    return torch.minimum(torch.maximum(x, x.new_full((), lo)),
+                         x.new_full((), hi))
 
 
 def mogd_descend(x0, mlps, lo, hi, ulo, uhi, uscale, target, signs,

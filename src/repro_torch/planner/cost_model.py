@@ -41,10 +41,26 @@ CHIP_COST_PER_S = TPU_V5E.chip_cost_per_s
 HBM_BYTES = TPU_V5E.hbm_bytes
 
 
+# (values, device, dtype) -> the blended choices' values as a tensor, made
+# at a program's first (eager) run: a CUDA graph's capture cannot copy a
+# constant from the host, so it reuses the one made then
+_CHOICES: dict = {}
+
+
+def _choices(ref: torch.Tensor, values: list) -> torch.Tensor:
+    """``ref.new_tensor(values)``, made once per device and dtype."""
+    key = (tuple(values), ref.device, ref.dtype)
+    t = _CHOICES.get(key)
+    if t is None:
+        t = _CHOICES[key] = torch.tensor(values, dtype=ref.dtype,
+                                         device=ref.device)
+    return t
+
+
 def _maximum(a, b):
     """``jnp.maximum`` with its subgradient (0.5 to each side of a tie)
     where ``a`` is a tensor and ``b`` a number."""
-    return torch.maximum(a, a.new_tensor(b))
+    return torch.maximum(a, a.new_full((), b))
 
 
 @dataclasses.dataclass
@@ -66,7 +82,9 @@ class PlanModel:
         *soft* (relaxed) knobs. Categorical knobs arrive as convex weights
         over their choices; numeric choices are blended accordingly."""
         cfg, shape = self.cfg, self.shape
-        c = soft["num_chips"].new_tensor
+        def c(values):
+            return _choices(soft["num_chips"], values)
+
         # --- blended categorical values ------------------------------
         chips = torch.sum(soft["num_chips"] * c([64., 128., 256., 512.]))
         tp = torch.sum(soft["model_parallel"]

@@ -42,6 +42,16 @@ FAST = MOGDConfig(steps=30, multistart=4)
 ATOL_GATE = 1e-3
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's host-side work: the suite runs
+    in parallel worker processes that idle threads would slow."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _export(tree):
     if isinstance(tree, dict):
         return {k: _export(v) for k, v in tree.items()}
