@@ -206,10 +206,12 @@ tree, it times that tree's kernels the same way.
 twins, with their checks), into ``NAME.json``; ``--graphs NAME`` only
 phase 1 and the graph check, with its cases' device times.
 
-Every MOO phase (3-5e, 5b, 5c, 6, 7d) also fails unless each executor
-dispatch on the card after a bucket's first was a graph replay: since
-the phase's reset of the launch counts, ``ROUTES["exec:eager"]`` must
-equal the programs built and ``exec:eager + exec:graph`` the dispatches
+Every MOO phase (3-5e, 5b, 5c, 6, 7d) also fails unless every executor
+dispatch and every surrogate fit on the card was answered by graph
+replays: since the phase's reset of the launch counts,
+``ROUTES["exec:graph"]`` must equal the dispatches and
+``ROUTES["exec:eager"]`` (the warm-ups) the programs built, and
+``fit:eager`` and ``fit:graph`` must each equal the fits made
 (``replay_check``); the counts print beside the phase's launches.
 
 Standard output ends with the service, comparison, planner, front-desk
@@ -408,21 +410,29 @@ TWIN_KERNELS = {
 }
 TWIN_TIMEOUT_S = 300
 TWIN_PARALLEL = 4
-# the graph check (phase 2): one dispatch a case, its warm-up (the eager
-# program) against its replay bit for bit, both timed back to back (reps
-# eager, reps replayed): ZDT1 at phase 5d's settings (the scan route), 64
+# the graph check (phase 2): one dispatch a case, the eager program
+# against its replays bit for bit, both timed back to back (reps eager,
+# reps replayed): ZDT1 at phase 5d's settings (the scan route), 64
 # tenants' paper-shape Spark structures at phase 2's descend shape (the
 # fused route), qwen3-4b's plan at train_4k as plan_job dispatches it (a
 # PlanModel closure on the scan route)
 GRAPH_CASES = {"zdt1": (2, 30), "spark": (10, 30), "plan_model": (1, 20)}
 GRAPH_BOXES = 4  # boxes a dispatch (PF-AP's batch of rectangles)
+# batched evaluation in the graph check: rows a call (an NSGA-II
+# population, a bounds estimate, a large frontier re-seed), reps a route
+GRAPH_EVAL_ROWS = (100, 1000, 4096)
+GRAPH_EVAL_REPS = 50
+GRAPH_EVAL_TOL = 1e-6  # sliced padded rows against the unpadded call
 
 
 # every probe executor made on the card in this process (its dispatch
 # counter, its builds by structure key, a weak reference to it) and their
 # totals at the last platform.reset_launches(): see track_executors
 _EXECUTORS: list = []
-_AT_RESET = {"dispatches": 0, "builds": 0}
+_FITS = [0]  # surrogate fits made on the card in this process
+_UNTRACKED: dict = {}  # the functions track_executors wrapped, by name
+_AT_RESET = {"dispatches": 0, "builds": 0, "fits": 0}
+_CAPTURE_AT_RESET: dict = {}  # graphs.CAPTURE_S at the last reset
 
 
 def log(*args) -> None:
@@ -454,14 +464,23 @@ def time_ms(fn, reps: int) -> float:
 
 
 def track_executors() -> None:
-    """Keep every ``ProbeExecutor`` made on the card from now on, and the
-    executors' totals at each ``platform.reset_launches()``, so that
-    :func:`replay_check` can hold the ``exec:*`` routes counted since the
-    last reset to the dispatches and program builds made since then."""
+    """Keep every ``ProbeExecutor`` made on the card from now on, count the
+    surrogate fits made there, and keep the totals at each
+    ``platform.reset_launches()``, so that :func:`replay_check` can hold
+    the ``exec:*`` and ``fit:*`` routes counted since the last reset to
+    the dispatches, program builds and fits made since then."""
     from repro_torch.exec import executor
-    from repro_torch.kernels import platform
+    from repro_torch.kernels import graphs, platform
+    from repro_torch.models import train
 
     init, reset = executor.ProbeExecutor.__init__, platform.reset_launches
+    fit = _UNTRACKED["fit"] = train._fit
+
+    def tracked_fit(*args, **kwargs):
+        dev = args[6] if len(args) > 6 else kwargs["dev"]
+        if dev.type == "cuda":
+            _FITS[0] += 1
+        return fit(*args, **kwargs)
 
     def tracked_init(self, *args, **kwargs):
         init(self, *args, **kwargs)
@@ -472,9 +491,12 @@ def track_executors() -> None:
     def tracked_reset():
         reset()
         _AT_RESET.update(_exec_totals())
+        _CAPTURE_AT_RESET.clear()
+        _CAPTURE_AT_RESET.update(graphs.CAPTURE_S)
 
     executor.ProbeExecutor.__init__ = tracked_init
     platform.reset_launches = tracked_reset
+    train._fit = tracked_fit
 
 
 def drop_graphs() -> None:
@@ -488,33 +510,47 @@ def drop_graphs() -> None:
             with ex._lock:
                 ex._programs.clear()
                 ex._built_buckets.clear()
+                ex._evals.clear()
     _free()
 
 
 def _exec_totals() -> dict:
     return {"dispatches": sum(int(c.value) for c, _, _ in _EXECUTORS),
-            "builds": sum(sum(b.values()) for _, b, _ in _EXECUTORS)}
+            "builds": sum(sum(b.values()) for _, b, _ in _EXECUTORS),
+            "fits": _FITS[0]}
 
 
 def replay_check(label: str) -> dict:
     """Since the last reset of the launch counts: every dispatch on the
-    card is counted once, as ``exec:eager`` or ``exec:graph``, and the
-    eager ones are the builds (one a bucket: its first dispatch, the
-    warm-up), so every later dispatch of a bucket was a graph replay.
-    Holds for executors without a multi-shard mesh (a shard is a program
-    run of its own).  Returns the counts, printed beside the launches."""
-    from repro_torch.kernels import platform
+    card was answered by replays (``exec:graph`` equals the dispatches),
+    the warm-ups are the builds (``exec:eager``: one a bucket, before its
+    captures), and every surrogate fit warmed up once and ran by replays
+    (``fit:eager`` and ``fit:graph`` each equal the fits).  Holds for
+    executors without a multi-shard mesh (a shard is a program run of its
+    own).  Returns the counts, printed beside the launches: the batched
+    evaluations' too (``eval:first``, a bucket's first call, eager;
+    ``eval:eager``, a warm-up before a bucket's capture at its second
+    call; ``eval:graph``, a replay), and the seconds of the captures by
+    route (``capture_s``)."""
+    from repro_torch.kernels import graphs, platform
 
     routes = platform.route_counts()
     now = _exec_totals()
-    got = {"exec:eager": routes.get("exec:eager", 0),
-           "exec:graph": routes.get("exec:graph", 0),
-           "dispatches": now["dispatches"] - _AT_RESET["dispatches"],
-           "builds": now["builds"] - _AT_RESET["builds"]}
+    got = {key: routes.get(key, 0)
+           for key in ("exec:eager", "exec:graph", "fit:eager", "fit:graph",
+                       "eval:first", "eval:eager", "eval:graph")}
+    got.update({key: now[key] - _AT_RESET[key]
+                for key in ("dispatches", "builds", "fits")})
+    got["capture_s"] = {
+        route: s - _CAPTURE_AT_RESET.get(route, 0.0)
+        for route, s in sorted(graphs.CAPTURE_S.items())
+        if s > _CAPTURE_AT_RESET.get(route, 0.0)}
     if (got["exec:eager"] != got["builds"]
-            or got["exec:eager"] + got["exec:graph"] != got["dispatches"]):
-        fail(f"{label}: dispatches on the card not one warm-up a bucket "
-             f"and replays after it: {got}")
+            or got["exec:graph"] != got["dispatches"]
+            or got["fit:eager"] != got["fits"]
+            or got["fit:graph"] != got["fits"]):
+        fail(f"{label}: dispatches and fits on the card not answered by "
+             f"replays after one warm-up a build: {got}")
     return got
 
 
@@ -1324,13 +1360,16 @@ def _ms_per_call(fn, reps: int) -> float:
 
 def phase_graphs(dev, cases) -> dict:
     """Phase 2's graph check: per case, the first dispatch (the parity gate
-    on the fused route, the warm-up, the capture) and a second dispatch of
-    the same requests (a replay) must agree bit for bit, and so must the
-    eager program and the replay on one set of inputs; then the eager
-    program and the replay (copy-in, replay, read-back) are timed back to
-    back on those inputs, and the whole dispatch (``solve_requests``)
-    replayed.  Reports the capture seconds (warm-up excluded) and the
-    graph's private pool MB."""
+    on the fused route, the warm-up, the captures, the replays that answer
+    it) and a second dispatch of the same requests must agree bit for
+    bit, and so must the eager program and the replays on one set of
+    inputs; then the eager program and the replays (copy-in, replays,
+    read-back) are timed back to back on those inputs, and the whole
+    dispatch (``solve_requests``) replayed.  Reports the first dispatch's
+    seconds, each graph's capture and instantiation seconds and nodes, the
+    steps a replay covers, and the graphs' private pool MB.  Then the
+    surrogate fit and the batched evaluations (:func:`fit_graph_check`,
+    :func:`eval_graph_check`)."""
     import torch
 
     from repro_torch.exec import tree_map
@@ -1367,6 +1406,11 @@ def phase_graphs(dev, cases) -> dict:
             "bucket": list(ex.last_bucket), "fused": ex.fused_dispatches > 0,
             "first_dispatch_s": first_s, "capture_s": graph.capture_s,
             "instantiate_s": graph.instantiate_s,
+            "graphs": {name: {"capture_s": p.capture_s,
+                              "instantiate_s": p.instantiate_s,
+                              "nodes": p.nodes}
+                       for name, p in graph.pieces.items()},
+            "steps_a_replay": graph.steps_a_replay,
             "pool_mb": graph.pool_bytes / 2**20,
             "eager_ms": _ms_per_call(eager, reps_eager),
             "replay_ms": _ms_per_call(replay, reps_replay),
@@ -1376,6 +1420,136 @@ def phase_graphs(dev, cases) -> dict:
         log(f"graph check {label}: {out[label]}")
     if not out["spark"]["fused"] or out["zdt1"]["fused"]:
         fail(f"graph check: routes {({k: v['fused'] for k, v in out.items()})}")
+    out["fit"] = fit_graph_check(dev)
+    out["eval"] = eval_graph_check(dev)
+    return out
+
+
+def fit_graph_check(dev) -> dict:
+    """The model server's surrogate fit at the paper's shape (phase 6's
+    traces of its first workload, the registry's trainer settings: hidden
+    (128,)*4, dropout 0.05, 60 epochs, log target), run eagerly and then
+    through its graphs: the parameters, the best validation loss and the
+    epochs must agree bit for bit, and so must the launch counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.workloads import (
+        batch_problem,
+        batch_suite,
+        generate_traces,
+    )
+    from repro_torch.kernels import platform
+    from repro_torch.models import train
+
+    X, Y = generate_traces(batch_problem(batch_suite()[0], device=dev),
+                           MS_TRACES, seed=100)
+    cfg = train.TrainConfig(max_epochs=60, dropout=0.05)
+    res, launches, seconds = {}, {}, {}
+    # the eager fit is a reference, not a fit of the path: untracked
+    for route, fit in (("eager", _UNTRACKED.get("fit", train._fit)),
+                       ("graph", train._fit)):
+        platform.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res[route] = fit(X, Y[:, 0], PAPER_HIDDEN, cfg, True, None, dev,
+                         route == "graph")
+        torch.cuda.synchronize()
+        seconds[route] = time.perf_counter() - t0
+        launches[route] = platform.launch_counts()
+    counts = replay_check("graph check fit")
+    (m_e, val_e, ep_e), (m_g, val_g, ep_g) = res["eager"], res["graph"]
+    same = (val_e == val_g and ep_e == ep_g and all(
+        _same_bits(a["w"], b["w"]) and _same_bits(a["b"], b["b"])
+        for a, b in zip(m_e.params, m_g.params)))
+    if not same or launches["eager"] != launches["graph"]:
+        fail(f"graph check fit: the graph fit differs from the eager fit "
+             f"(best {val_e} / {val_g}, epochs {ep_e} / {ep_g}, launches "
+             f"{launches})")
+    n_tr = MS_TRACES - max(1, int(MS_TRACES * cfg.val_frac))
+    out = {"traces": MS_TRACES, "epochs": ep_g, "best_val": val_g,
+           "steps_an_epoch": -(-n_tr // cfg.batch_size),
+           "eager_s": seconds["eager"], "graph_s": seconds["graph"],
+           "launches": launches["graph"], "exec": counts,
+           "finite": bool(np.isfinite(val_g))}
+    log(f"graph check fit: {out}")
+    return out
+
+
+def eval_graph_check(dev) -> dict:
+    """Batched evaluation through its graphs: ``eval_batch`` of the
+    paper-shape Spark structure and ``evaluate_batch`` of ZDT1 at each of
+    ``GRAPH_EVAL_ROWS``.  A bucket's first call runs eagerly on the padded
+    rows and its second is captured and replayed: the two, and the eager
+    function on the same padded rows, must agree bit for bit, and the
+    first N rows must agree with the unpadded eager call within
+    ``GRAPH_EVAL_TOL`` relative (reported with whether they are equal bit
+    for bit).  Reports each call's seconds and the capture's, then both
+    routes timed back to back."""
+    import torch
+
+    from repro_torch.core import as_problem, make_zdt1
+    from repro_torch.exec import ProbeExecutor, bucket
+
+    spark = as_problem(spark_task(1, dev)).program
+    zdt1 = make_zdt1(device=dev)
+    ex = ProbeExecutor(device=dev, mesh=None)
+    params = ex._params_to(spark.params)
+    out = {}
+    for label in ("spark_eval_batch", "zdt1_evaluate_batch"):
+        for N in GRAPH_EVAL_ROWS:
+            gen = torch.Generator().manual_seed(N)
+            if label.startswith("spark"):
+                X = torch.rand((N, 13), generator=gen).to(dev)
+
+                def call():
+                    return ex.eval_batch(spark, X)
+
+                shared = (params,)
+            else:
+                X = torch.rand((N, zdt1.dim), generator=gen).to(dev)
+
+                def call():
+                    return zdt1.evaluate_batch(X)
+
+                shared = ()
+            seconds = []
+            for _ in range(2):  # the bucket's first call, then its capture
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = call()
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+                if len(seconds) == 1:
+                    first = got
+            rows = (next(iter(ex._evals.values())) if shared
+                    else zdt1._batch_rows)
+            graph = rows.graphs[bucket(N)]
+            Xp = graph.leaves[-1].clone()
+            with torch.no_grad():
+                padded = rows.fn(*shared, Xp)
+                alone = rows.fn(*shared, X)
+            if not (_same_bits(got, padded[:N]) and _same_bits(first, got)):
+                fail(f"graph check {label} N={N}: the replay differs from "
+                     f"the eager function on its padded rows")
+            rel = float(torch.max(torch.abs(got - alone)
+                                  / torch.clamp_min(torch.abs(alone),
+                                                    1e-30)))
+            if not rel <= GRAPH_EVAL_TOL:
+                fail(f"graph check {label} N={N}: sliced rows {rel:.3g} "
+                     f"relative from the unpadded call")
+            out[f"{label}_{N}"] = {
+                "rows": N, "bucket": int(Xp.shape[0]),
+                "bits_equal_unpadded": _same_bits(got, alone),
+                "max_rel_unpadded": rel,
+                "first_call_s": seconds[0], "second_call_s": seconds[1],
+                "capture_s": graph.captured.capture_s,
+                "nodes": graph.captured.nodes,
+                "eager_ms": _ms_per_call(
+                    lambda: rows.fn(*shared, X).cpu(), GRAPH_EVAL_REPS),
+                "replay_ms": _ms_per_call(lambda: call().cpu(),
+                                          GRAPH_EVAL_REPS)}
+    log(f"graph check eval: {out}")
     return out
 
 
@@ -4215,8 +4389,9 @@ def twin_child(rel: str) -> int:
         try:
             got = replay_check(rel)
         except SystemExit:  # fail() printed the reason
-            got = {"failed": "dispatches on the card not one warm-up a "
-                             "bucket and replays after it"}
+            got = {"failed": "dispatches and fits on the card not "
+                             "answered by replays after one warm-up a "
+                             "build"}
         print(TWIN_EXEC_TAG + json.dumps(got), file=sys.stderr, flush=True)
     return 0
 

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 from torch.func import vmap
 
+from ..kernels.graphs import RowGraphs
 from ..kernels.platform import resolve_device
 
 
@@ -282,6 +283,9 @@ class MOOProblem:
         if not self.names:
             self.names = tuple(f"F{i+1}" for i in range(self.k))
         self._batch_fn = vmap(self.objectives)
+        # on the card: a CUDA graph a row bucket from its second call on
+        self._batch_rows = RowGraphs(
+            self._batch_fn, f"the batch function of problem {self.names!r}")
 
     @property
     def dim(self) -> int:
@@ -312,7 +316,9 @@ class MOOProblem:
         Problems carrying a ``(structure, params)`` program (stamped by
         ``TaskSpec.compile``) evaluate through the device's default
         executor, so equal-architecture workloads share one batched
-        forward; others vmap their objective callable."""
+        forward; others vmap their objective callable.  On the card both
+        pad the rows to a bucket and replay a CUDA graph a bucket from its
+        second call on (``kernels.graphs.RowGraphs``)."""
         X = torch.as_tensor(X, dtype=torch.float32, device=self.device)
         prog = getattr(self, "program", None)
         if prog is not None:
@@ -321,7 +327,7 @@ class MOOProblem:
             return default_executor(self.device).eval_batch(prog, X)
         if X.shape[0] == 0:
             return torch.zeros((0, self.k), dtype=X.dtype, device=X.device)
-        return self._batch_fn(X)
+        return self._batch_rows(X)
 
     def decode_batch(self, X) -> list[dict]:
         """Decode every row of ``X: (N, D)``."""

@@ -24,13 +24,19 @@ Consequences:
 A "program" is built once per structure and bucket, as the reference's
 ``jax.jit`` is; the cache, the build counts and the ``stats()`` telemetry
 keep the reference's meaning.  On the host it is a Python closure run
-eagerly at every dispatch.  On a CUDA device it is that closure captured
-as a CUDA graph (:class:`_Graph`): the bucket's first dispatch runs the
-closure eagerly (the warm-up, whose result answers it) and then captures
-it over static input buffers; every later dispatch copies its inputs
-into those buffers and replays the graph.  A closure that cannot be
-captured (one that syncs with the host) raises; it never runs eagerly in
-the graph's place.
+eagerly at every dispatch.  On a CUDA device it runs as CUDA graphs
+(:class:`_Graph`, over ``kernels.graphs``) captured at the bucket's first
+dispatch over static buffers, after one warm-up whose result nobody sees;
+every dispatch, the first included, copies its inputs into those buffers
+and replays.  The fused route is one graph for the whole program.  The
+scan route is the reference's ``lax.scan`` *body*: one Adam step captured
+over the descent's state (``x``, Adam's moments, an fp32 step counter),
+replayed ``cfg.steps`` times between an initialization and a captured
+score.  A closure that cannot be captured (one that syncs with the host)
+raises; it never runs eagerly in the graph's place.  Batched evaluation
+(:meth:`ProbeExecutor.eval_batch`, and ``MOOProblem.evaluate_batch``) is a
+``kernels.graphs.RowGraphs``: a graph per structure and row bucket, from
+the bucket's second call on.
 
 A probe mesh (``distributed.ProbeMesh``) splits each padded batch along
 its group or row axis across the mesh's devices, as the reference's
@@ -45,7 +51,6 @@ import dataclasses
 import itertools
 import threading
 import time
-import traceback
 from typing import Any, Callable
 
 import numpy as np
@@ -54,7 +59,7 @@ from torch.func import grad, vmap
 
 from ..distributed.sharding import choose_probe_partition, probe_mesh
 from ..kernels.mogd_descend import _adam_update
-from ..kernels import platform
+from ..kernels import graphs, platform
 from ..kernels.platform import resolve_device
 from ..kernels.ref import clip
 
@@ -651,23 +656,18 @@ class ProbeExecutor:
         eff_gRS = vmap(vmap(vmap(eff, in_dims=(None, None, 0)),
                             in_dims=(None, 0, 0)), in_dims=(0, 0, 0))
 
-        counters = {}  # device -> step_counter, made by the first run
-
-        def scan_descend(params, x0s, los, his, ulo, uhi, uscale, alphas,
-                         targets):
-            ts = counters.get(x0s.device)
-            if ts is None:
-                ts = counters[x0s.device] = step_counter(cfg.steps,
-                                                         x0s.device)
-            x = x0s
-            m = torch.zeros_like(x0s)
-            v = torch.zeros_like(x0s)
-            for step in range(cfg.steps):
-                g = row_grad(x, params, los, his, ulo, uhi, uscale, alphas,
-                             targets)
-                g = torch.where(torch.isfinite(g), g, torch.zeros_like(g))
-                x, m, v = _adam_update(x, m, v, g, ts[step], cfg)
-            return x
+        def step(state, params, rows):
+            """One projected-Adam step of every start, in place: ``x, m,
+            v`` take the update and the fp32 step counter ``t`` adds one
+            (``step_counter``'s numbers bit for bit, up to 2^24)."""
+            x, m, v, t = state
+            g = row_grad(x, params, *rows[1:])
+            g = torch.where(torch.isfinite(g), g, torch.zeros_like(g))
+            x1, m1, v1 = _adam_update(x, m, v, g, t, cfg)
+            x.copy_(x1)
+            m.copy_(m1)
+            v.copy_(v1)
+            t.add_(1.0)
 
         def score(params, finals, los, his, ulo, uhi, uscale, alphas,
                   targets):
@@ -692,14 +692,16 @@ class ProbeExecutor:
             f_best = torch.take_along_dim(fvals, pick, dim=2)[:, :, 0]
             return x_best, f_best, torch.any(feas, dim=-1)
 
+        scan = None
         if plan is None:
-            def batched(params, x0s, los, his, ulo, uhi, uscale, alphas,
-                        targets):
-                finals = scan_descend(params, x0s, los, his, ulo, uhi,
-                                      uscale, alphas, targets)
+            scan = _Scan(step, score)
+
+            def batched(params, *rows):
+                state = scan.new_state(rows[0])
+                for _ in range(cfg.steps):
+                    step(state, params, rows)
                 with torch.no_grad():
-                    return score(params, finals, los, his, ulo, uhi, uscale,
-                                 alphas, targets)
+                    return score(params, state[0], *rows[1:])
         else:
             from ..kernels.mogd_descend import descend_batch
 
@@ -718,7 +720,8 @@ class ProbeExecutor:
             shards = (tuple(self.mesh.devices), 0 if axis == "group" else 1)
         self.compile_counts[skey] = self.compile_counts.get(skey, 0) + 1
         self._c_compiles.inc()
-        return _Program(batched, skey, shards, clock=self.obs.tracer.now)
+        return _Program(batched, skey, shards, clock=self.obs.tracer.now,
+                        scan=scan, steps=cfg.steps)
 
     # -- assembly ----------------------------------------------------------
     def _params_to(self, params):
@@ -793,7 +796,7 @@ class ProbeExecutor:
             if fn is None:
                 tc0 = tr.now()
                 fn = self._build(r0, skey, plan, axis)
-                if tr.enabled and not _captures(self.device):
+                if tr.enabled and not graphs.captures(self.device):
                     tr.record_span(
                         "exec.compile", tc0, tr.now(), cat="exec",
                         parent=parent_span,
@@ -821,7 +824,7 @@ class ProbeExecutor:
                                 else torch.float32, device=self.device)
                 for i, r in enumerate(rows)]
 
-        def on_compile(t0, t1, graph):  # the build, warm-up and capture
+        def on_compile(t0, t1, graph):  # the build, warm-up and captures
             if tr.enabled:
                 tr.record_span(
                     "exec.compile", t0 if tc0 is None else tc0, t1,
@@ -830,7 +833,9 @@ class ProbeExecutor:
                           "device": str(graph.device),
                           "capture_s": graph.capture_s,
                           "instantiate_s": graph.instantiate_s,
-                          "pool_mb": graph.pool_bytes / 2**20})
+                          "pool_mb": graph.pool_bytes / 2**20,
+                          "nodes": graph.nodes,
+                          "steps_a_replay": graph.steps_a_replay})
 
         td0 = tr.now()
         x, f, feas = fn(params, *rows, on_compile=on_compile)
@@ -873,13 +878,17 @@ class ProbeExecutor:
     def eval_batch(self, program: ParamProgram, X) -> torch.Tensor:
         """``(N, D) -> (N, k)`` through the program split: one vmapped
         forward per structure (params shared across rows), on the
-        executor's device."""
+        executor's device; on the card a CUDA graph per structure and row
+        bucket from the bucket's second call on (``graphs.RowGraphs``)."""
         X = torch.as_tensor(X, dtype=torch.float32, device=self.device)
         key = ("eval", program.structure)
         with self._lock:
             fn = self._evals.pop(key, None)  # re-insert as newest (LRU)
             if fn is None:
-                fn = vmap(program.apply, in_dims=(None, 0))
+                fn = graphs.RowGraphs(
+                    vmap(program.apply, in_dims=(None, 0)),
+                    f"the batched evaluation of structure "
+                    f"{program.structure!r}", self.bucket_fn)
                 self._c_eval_compiles.inc()
             self._evals[key] = fn
             while len(self._evals) > self.max_programs:
@@ -897,19 +906,32 @@ class ProbeExecutor:
 # Programs on the card: CUDA graphs, captured once per bucket and device
 # ---------------------------------------------------------------------------
 
-# one warm-up and capture at a time in the process, on one side stream a
-# device: first dispatches are rare (one a bucket and device), a stream
-# that is capturing must carry no other thread's work, and every stream a
-# program's GEMMs run on keeps a cuBLAS workspace for good (a stream a
-# graph, from PyTorch's pool of 32, held about 1.2 GB on an H100)
-_CAPTURE_LOCK = threading.Lock()
-_SIDE_STREAMS: dict = {}  # device -> its warm-up and capture stream
 
+class _Scan:
+    """The scan route's pieces: ``step(state, params, rows)``, one Adam
+    step of every start in place (the reference's ``lax.scan`` body), and
+    ``score(params, x, *rows[1:])``."""
 
-def _captures(device: torch.device) -> bool:
-    """Whether a program runs as a CUDA graph on ``device``: on a CUDA
-    device, as the kernel wrappers launch their kernels there."""
-    return device.type == "cuda"
+    def __init__(self, step: Callable, score: Callable):
+        self.step = step
+        self.score = score
+
+    @staticmethod
+    def new_state(x0s: torch.Tensor) -> tuple:
+        """A descent's state ``(x, m, v, t)`` at its starts ``x0s``."""
+        state = (torch.empty_like(x0s), torch.empty_like(x0s),
+                 torch.empty_like(x0s), x0s.new_empty(()))
+        _Scan.init(state, x0s)
+        return state
+
+    @staticmethod
+    def init(state: tuple, x0s: torch.Tensor) -> None:
+        """``x <- x0s``, Adam's moments 0, the step counter 1, in place."""
+        x, m, v, t = state
+        x.copy_(x0s)
+        m.zero_()
+        v.zero_()
+        t.fill_(1.0)
 
 
 class _Program:
@@ -918,18 +940,23 @@ class _Program:
     On the host ``fn`` runs eagerly.  On a CUDA device it runs through
     that device's :class:`_Graph`, made at the first dispatch there, so
     the shards of a probe mesh that share a card take one graph in turn.
-    ``shards`` is None (one program over the whole batch) or ``(devices,
-    dim)``: the batch split along ``dim`` (0 the groups with their params,
-    1 the rows, every group's params on every device), shard ``i`` run on
-    ``devices[i]`` and the results concatenated on the host.
-    ``on_compile(t0, t1, graph)`` is told of a capture (on ``clock``)."""
+    ``scan`` holds the scan route's pieces (None on the fused route);
+    ``steps`` is the descent's length.  ``shards`` is None (one
+    program over the whole batch) or ``(devices, dim)``: the batch split
+    along ``dim`` (0 the groups with their params, 1 the rows, every
+    group's params on every device), shard ``i`` run on ``devices[i]``
+    and the results concatenated on the host.  ``on_compile(t0, t1,
+    graph)`` is told of a capture (on ``clock``)."""
 
     def __init__(self, fn: Callable, skey: tuple, shards=None,
-                 clock: Callable[[], float] = time.perf_counter):
+                 clock: Callable[[], float] = time.perf_counter,
+                 scan: _Scan | None = None, steps: int = 0):
         self.fn = fn
         self.skey = skey
         self.shards = shards
         self.clock = clock
+        self.scan = scan
+        self.steps = steps
         self.graphs: dict[torch.device, _Graph] = {}
         self._lock = threading.Lock()
 
@@ -950,142 +977,136 @@ class _Program:
 
     def _run(self, params, rows, on_compile):
         device = rows[0].device
-        if not _captures(device):
+        if not graphs.captures(device):
             return self.fn(params, *rows)
         with self._lock:
             graph = self.graphs.get(device)
             if graph is None:
-                graph = self.graphs[device] = _Graph(self.fn, self.skey,
-                                                     device, self.clock)
+                graph = self.graphs[device] = _Graph(
+                    self.fn, self.skey, self.scan, self.steps, device,
+                    self.clock)
         return graph(params, rows, on_compile)
 
 
 class _Graph:
-    """A program captured as a CUDA graph on one device.
+    """A solve program on one device as CUDA graphs over static buffers.
 
-    The first call runs the program eagerly on the device's side stream:
-    the warm-up, which builds the kernels' library, makes the cuBLAS
-    handles and warms autograd, and whose result answers the call.  It
-    then captures the same program on that stream over static copies of
-    the call's inputs, into a memory pool of the graph's own.  Every later
-    call copies its inputs into those buffers (``copy_``), replays the
-    graph and reads the three outputs back to the host.  One lock covers
-    all of that, so two threads never capture one graph twice and never
-    overwrite each other's inputs or outputs.
+    On the fused route the whole program is one ``graphs.CallGraph``.  On
+    the scan route the first call clones the inputs into static buffers,
+    runs init, one Adam step and the score once eagerly on the device's
+    side stream (the warm-up: it builds the kernels' library, makes the
+    cuBLAS handles and warms ``torch.func``; its result and its launch
+    counts are dropped, and it adds one to
+    ``platform.ROUTES["exec:eager"]``) and captures there a graph of one
+    Adam step over the descent's state and a graph of the score.  Every
+    call, the first included, copies its inputs into the buffers, replays
+    (on the scan route: the state's initialization, the step graph
+    ``steps`` times, the score), adds one to ``ROUTES["exec:graph"]`` and
+    reads the three outputs back to the host.  Each graph's wrapper counts
+    are added at each of its replays, so the launch counts are the eager
+    program's.  One lock covers a call, so two threads never capture one
+    graph twice and never overwrite each other's inputs or outputs.  A
+    capture that fails raises with the structure and the line it stopped
+    at; the program never runs eagerly in the graph's place."""
 
-    Counting: the warm-up counts its launches as they run and adds one to
-    ``platform.ROUTES["exec:eager"]``; the capture's counts are deferred
-    (``platform.deferred_counts``) and added at each replay with one to
-    ``ROUTES["exec:graph"]``.  A capture that fails (a program that syncs
-    with the host) raises with the structure and the line it stopped at;
-    the program never runs eagerly in the graph's place."""
-
-    def __init__(self, fn: Callable, skey: tuple, device: torch.device,
+    def __init__(self, fn: Callable, skey: tuple, scan: _Scan | None,
+                 steps: int, device: torch.device,
                  clock: Callable[[], float] = time.perf_counter):
         self.fn = fn
         self.skey = skey
+        self.scan = scan
+        self.steps = steps
         self.device = device
         self.clock = clock
         self.lock = threading.Lock()
-        self.graph = None  # torch.cuda.CUDAGraph once captured
-        self.inputs = None  # (params, rows): the static input buffers
-        self.outputs = None
-        self.tally = ()  # the counts one replay adds
-        self.capture_s = 0.0  # recording and instantiation
-        self.instantiate_s = 0.0  # capture_end: ending, instantiating
+        self.program: graphs.CallGraph | None = None  # the fused route's
+        self.inputs = None  # the static (params, rows)
+        self.state = None  # the scan route's (x, m, v, t)
+        self.pieces: dict[str, graphs.Captured] = {}
 
-    def __call__(self, params, rows, on_compile=None):
-        with self.lock:
-            if self.graph is None:
-                return self._first(params, rows, on_compile)
-            tree_map(_copy_into, self.inputs, (params, tuple(rows)))
-            self.graph.replay()
-            platform.add_counts(self.tally)
-            platform.ROUTES["exec:graph"] += 1
-            # copies, never the buffers the next replay overwrites
-            return tuple(o.to("cpu", copy=True) for o in self.outputs)
+    @property
+    def steps_a_replay(self) -> int:
+        """Adam steps one replay of the step graph (the scan route) or of
+        the whole program (the fused route) covers."""
+        return self.steps if self.scan is None else 1
 
-    def _first(self, params, rows, on_compile):
-        t0 = self.clock()
-        with _CAPTURE_LOCK:
-            stream = _SIDE_STREAMS.get(self.device)
-            if stream is None:
-                stream = _SIDE_STREAMS[self.device] = torch.cuda.Stream(
-                    self.device)
-            stream.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(stream):
-                out = tuple(o.cpu() for o in self.fn(params, *rows))
-            platform.ROUTES["exec:eager"] += 1
-            self._capture(params, rows, stream)
-        if on_compile is not None:
-            on_compile(t0, self.clock(), self)
-        return out
+    @property
+    def capture_s(self) -> float:
+        """Seconds of the captures: recording and instantiation."""
+        return sum(p.capture_s for p in self.pieces.values())
 
-    def _capture(self, params, rows, stream) -> None:
-        """Capture the program on ``stream`` over static copies of the
-        inputs; its wrappers' counts go to the replays' tally."""
-        inputs = tree_map(torch.clone, (params, tuple(rows)))
-        graph = torch.cuda.CUDAGraph()
-        with platform.deferred_counts() as tally:
-            c0 = time.perf_counter()
-            try:
-                # capture_begin/end, not torch.cuda.graph: that context
-                # also syncs the device and empties the allocator's cache,
-                # which every later allocation of the process would pay
-                with torch.cuda.stream(stream):
-                    graph.capture_begin(capture_error_mode="thread_local")
-                    try:
-                        outputs = self.fn(inputs[0], *inputs[1])
-                    finally:
-                        e0 = time.perf_counter()
-                        graph.capture_end()
-            except RuntimeError as exc:
-                raise RuntimeError(
-                    f"CUDA graph capture of structure {self.skey!r} on "
-                    f"{self.device} failed at {_capture_site(exc)}: "
-                    f"{exc}") from exc
-            self.capture_s = time.perf_counter() - c0
-            self.instantiate_s = time.perf_counter() - e0
-        self.graph, self.inputs, self.outputs = graph, inputs, outputs
-        self.tally = tuple(tally)
+    @property
+    def instantiate_s(self) -> float:
+        """Seconds of the captures' ends and instantiations."""
+        return sum(p.instantiate_s for p in self.pieces.values())
+
+    @property
+    def nodes(self) -> dict:
+        """Nodes of each graph, by piece."""
+        return {name: p.nodes for name, p in self.pieces.items()}
 
     @property
     def pool_bytes(self) -> int:
-        """Bytes of the graph's private memory pool (0 before capture);
-        read from the allocator's snapshot when asked, never on the
-        dispatch path."""
-        return 0 if self.graph is None else _pool_bytes(self.graph,
-                                                        self.device)
+        """Bytes of the graphs' private memory pools (0 before capture)."""
+        return sum(p.pool_bytes for p in self.pieces.values())
+
+    def __call__(self, params, rows, on_compile=None):
+        inputs = (params, tuple(rows))
+        with self.lock:
+            if not self.pieces:
+                t0 = self.clock()
+                self._first(inputs)
+                if on_compile is not None:
+                    on_compile(t0, self.clock(), self)
+            if self.scan is None:
+                return self.program(*inputs, read=_to_host)
+            tree_map(graphs.copy_into, self.inputs, inputs)
+            self.scan.init(self.state, self.inputs[1][0])
+            self.pieces["step"].replay(self.steps)
+            out = self.pieces["score"].replay()
+            platform.ROUTES["exec:graph"] += 1
+            return _to_host(out)
+
+    def _first(self, inputs) -> None:
+        dev, fn, scan = self.device, self.fn, self.scan
+        what = f"structure {self.skey!r}"
+        if scan is None:
+            self.program = graphs.CallGraph(
+                lambda params, rows: fn(params, *rows), dev, "exec", what)
+            self.program.prepare(*inputs)
+            self.inputs = self.program.inputs
+            self.pieces = {"program": self.program.captured}
+            return
+        params, rows = tree_map(torch.clone, inputs)
+        state = scan.new_state(rows[0])
+
+        def step():
+            scan.step(state, params, rows)
+
+        def score():
+            with torch.no_grad():
+                return scan.score(params, state[0], *rows[1:])
+
+        def warm():
+            scan.init(state, rows[0])
+            step()
+            score()
+
+        with graphs.building(dev) as stream:
+            graphs.warm_up(stream, warm)
+            platform.ROUTES["exec:eager"] += 1
+            pieces = {
+                "step": graphs.capture(step, stream, dev, what,
+                                       route="exec"),
+                "score": graphs.capture(score, stream, dev, what,
+                                        route="exec")}
+        self.inputs, self.state, self.pieces = (params, rows), state, pieces
 
 
-def _copy_into(dst: torch.Tensor, src: torch.Tensor) -> None:
-    if dst.shape != src.shape:
-        raise ValueError(f"a captured program's input is {tuple(dst.shape)}"
-                         f", this dispatch's {tuple(src.shape)}")
-    dst.copy_(src)
-
-
-def _capture_site(exc: BaseException) -> str:
-    """``file:line: code`` of the innermost frame outside ``torch`` where
-    the first exception of ``exc``'s chain was raised (the op a capture
-    stopped at; a failed capture also fails its end, which chains it)."""
-    while exc.__context__ is not None:
-        exc = exc.__context__
-    frames = [f for f in traceback.extract_tb(exc.__traceback__)
-              if "/torch/" not in f.filename.replace("\\", "/")
-              and f.name != "__torch_dispatch__"]
-    if not frames:
-        return "an unknown line"
-    f = frames[-1]
-    return f"{f.filename}:{f.lineno}: {f.line}"
-
-
-def _pool_bytes(graph, device: torch.device) -> int:
-    """Bytes of the segments of ``graph``'s private memory pool."""
-    pool = tuple(graph.pool())
-    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-               if seg.get("device") == device.index
-               and tuple(seg.get("segment_pool_id") or ()) == pool)
+def _to_host(out) -> tuple:
+    """Copies on the host of a graph's static outputs, never the buffers
+    the next replay overwrites."""
+    return tuple(o.to("cpu", copy=True) for o in out)
 
 
 # ---------------------------------------------------------------------------

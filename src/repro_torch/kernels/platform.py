@@ -68,9 +68,11 @@ LAUNCHES: collections.Counter = _Counts()
 PLAIN_ON_CUDA: collections.Counter = _Counts()
 # plain-version name -> backward recomputes on a CUDA tensor
 PLAIN_BACKWARD_ON_CUDA: collections.Counter = _Counts()
-# "<kernel>:<route>" -> launches by that route; the probe executor adds
-# "exec:eager" (a program run eagerly on the card: the warm-up at a
-# bucket's first dispatch) and "exec:graph" (a captured program replayed)
+# "<kernel>:<route>" -> launches by that route; the CUDA graphs
+# (kernels.graphs) add "<program>:eager" (a warm-up before a capture) and
+# "<program>:graph" (a call answered by replays) for the probe executor's
+# solve programs ("exec"), batched evaluation ("eval") and surrogate fits
+# ("fit"), and "eval:first" (a row bucket's first call, run eagerly)
 ROUTES: collections.Counter = _Counts()
 # CUDA device indices found to be Hopper cards
 _ON_HOPPER: set[int] = set()
@@ -159,11 +161,11 @@ def deferred_counts():
         _DEFERRED.tally = outer
 
 
-def add_counts(tally) -> None:
-    """Add a :func:`deferred_counts` tally to its counters (once per replay
-    of the graph it was captured with)."""
+def add_counts(tally, times: int = 1) -> None:
+    """Add a :func:`deferred_counts` tally to its counters ``times`` times
+    (once per replay of the graph it was captured with)."""
     for counter, key, n in tally:
-        counter[key] += n
+        counter[key] += n * times
 
 
 def launch_counts() -> dict:

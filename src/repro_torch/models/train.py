@@ -15,6 +15,18 @@ dropout.  The split and the minibatch order come from
 ``np.random.default_rng(config.seed)`` as in the reference, so both
 packages see the same rows in the same order; He init and the dropout
 masks come from ``torch.Generator``s seeded from ``config.seed``.
+
+The reference jits its train step and validation loss once a fit.  Here
+the training rows go to the device once a fit, each epoch's padded batch
+order once an epoch, and the parameters, Adam's moments and step and the
+step's index into the epoch live in buffers that the step updates in
+place.  On the card the step and the validation loss are CUDA graphs
+(``kernels.graphs``) captured once a fit, after one warm-up whose effects
+are undone, and replayed: the step graph once a step, with the dropout
+generator registered with it (each replay draws what the eager step
+would), the validation graph once an epoch.  ``platform.ROUTES`` counts
+``fit:eager`` (warm-ups) and ``fit:graph`` (fits run by replays).  On the
+host the same closures run eagerly.
 """
 
 from __future__ import annotations
@@ -24,7 +36,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..kernels import ops
+from ..kernels import graphs, ops, platform
 from ..kernels.platform import resolve_device
 from .mlp import MLPRegressor, MLPSpec, init_mlp, mlp_forward
 
@@ -93,6 +105,15 @@ def fit_mlp(
     of He-init; layer shapes must match ``hidden``.
     """
     dev = resolve_device(device)
+    return _fit(X, y, hidden, config, log_target, init_params, dev,
+                graphs.captures(dev))[0]
+
+
+def _fit(X, y, hidden, config: TrainConfig, log_target: bool, init_params,
+         dev: torch.device, graph: bool) -> tuple:
+    """:func:`fit_mlp` on ``dev``, its steps and validations replayed as
+    CUDA graphs when ``graph`` (else run eagerly: both give the same bits).
+    Returns ``(regressor, best validation loss, epochs run)``."""
     X = np.asarray(X, dtype=np.float32)
     y = np.asarray(y, dtype=np.float32).reshape(-1, 1)
     if log_target:
@@ -123,11 +144,22 @@ def fit_mlp(
         params = [{k: _tensor(layer[k], dev) for k in ("w", "b")}
                   for layer in init_params]
     L = len(params)
-    flat = [p["w"] for p in params] + [p["b"] for p in params]
-    opt = {"m": [torch.zeros_like(p) for p in flat],
-           "v": [torch.zeros_like(p) for p in flat],
-           "t": torch.zeros((), dtype=torch.float32, device=dev)}
+    # the state, updated in place (never the caller's init_params)
+    flat = [p["w"].clone() for p in params] + [p["b"].clone()
+                                               for p in params]
+    m = [torch.zeros_like(p) for p in flat]
+    v = [torch.zeros_like(p) for p in flat]
+    t = torch.zeros((), dtype=torch.float32, device=dev)
     drop_gen = torch.Generator(device=dev).manual_seed(int(config.seed) + 1)
+
+    # the rows on the device once a fit; an epoch's padded batches of row
+    # indices once an epoch; the step's row of them, advanced by the step
+    Xd, Yd = _tensor(Xt, dev), _tensor(Yt, dev)
+    xv, yv = _tensor(Xt[val_idx], dev), _tensor(Yt[val_idx], dev)
+    bs = min(config.batch_size, len(tr_idx))
+    n_steps = -(-len(tr_idx) // bs)
+    batches = torch.zeros((n_steps, bs), dtype=torch.int64, device=dev)
+    s = torch.zeros((1,), dtype=torch.int64, device=dev)
 
     def predict(flat_, xb, train: bool):
         if train and config.dropout > 0.0:
@@ -135,36 +167,60 @@ def fit_mlp(
                                dropout=config.dropout, generator=drop_gen)
         return ops.mlp_forward(xb, flat_[:L], flat_[L:])
 
-    def train_step(flat_, opt_, xb, yb):
-        leaves = [p.detach().requires_grad_() for p in flat_]
+    def train_step():
+        rows = batches.index_select(0, s).view(-1)
+        xb, yb = Xd.index_select(0, rows), Yd.index_select(0, rows)
+        leaves = [p.detach().requires_grad_() for p in flat]
         loss = torch.mean((predict(leaves, xb, True) - yb) ** 2)
         grads = torch.autograd.grad(loss, leaves)
         with torch.no_grad():
-            return _adam_update(flat_, grads, opt_, config.lr,
-                                config.weight_decay)
+            new, opt = _adam_update(flat, grads, {"m": m, "v": v, "t": t},
+                                    config.lr, config.weight_decay)
+            for dst, src in zip([*flat, *m, *v, t],
+                                [*new, *opt["m"], *opt["v"], opt["t"]]):
+                dst.copy_(src)
+            s.add_(1)
 
-    xv, yv = _tensor(Xt[val_idx], dev), _tensor(Yt[val_idx], dev)
-    best_val, best, bad = np.inf, flat, 0
-    bs = min(config.batch_size, len(tr_idx))
+    def val_loss():
+        with torch.no_grad():
+            return (torch.mean((predict(flat, xv, False) - yv) ** 2),)
+
+    def run_steps():
+        for _ in range(n_steps):
+            train_step()
+
+    run_val = val_loss
+    if graph:
+        run_steps, run_val = _fit_graphs(
+            train_step, val_loss, n_steps, dev, drop_gen,
+            (flat, m, v, t, s))
+
+    best_val, best, bad, epochs = np.inf, [p.clone() for p in flat], 0, 0
     for _epoch in range(config.max_epochs):
         order = rng.permutation(len(tr_idx))
-        for s in range(0, len(order), bs):
-            idx = tr_idx[order[s: s + bs]]
-            if len(idx) < bs:  # the reference pads to a static batch shape
-                idx = np.concatenate([idx, tr_idx[order[: bs - len(idx)]]])
-            flat, opt = train_step(flat, opt, _tensor(Xt[idx], dev),
-                                   _tensor(Yt[idx], dev))
-        with torch.no_grad():
-            v = float(torch.mean((predict(flat, xv, False) - yv) ** 2))
-        if v < best_val - 1e-6:
-            best_val, best, bad = v, flat, 0
+        idx = []
+        for s0 in range(0, len(order), bs):
+            rows = tr_idx[order[s0: s0 + bs]]
+            if len(rows) < bs:  # the reference pads to a static batch shape
+                rows = np.concatenate([rows, tr_idx[order[: bs - len(rows)]]])
+            idx.append(rows)
+        batches.copy_(torch.from_numpy(np.stack(idx).astype(np.int64)))
+        s.zero_()
+        run_steps()
+        val = float(run_val()[0])
+        epochs += 1
+        if val < best_val - 1e-6:
+            # a copy: the next step overwrites the buffers in place
+            best_val, best, bad = val, [p.clone() for p in flat], 0
         else:
             bad += 1
             if bad >= config.patience:
                 break
-    return MLPRegressor(
+    if graph:
+        platform.ROUTES["fit:graph"] += 1
+    model = MLPRegressor(
         spec=spec,
-        params=_layers([p.detach() for p in best], L),
+        params=_layers(best, L),
         x_mean=_tensor(x_mean, dev),
         x_std=_tensor(x_std, dev),
         y_mean=_tensor(y_mean, dev),
@@ -172,6 +228,36 @@ def fit_mlp(
         dropout=max(config.dropout, 0.05),
         log_target=log_target,
     )
+    return model, best_val, epochs
+
+
+def _fit_graphs(train_step, val_loss, n_steps: int, dev, drop_gen,
+                state) -> tuple:
+    """The fit's step and validation loss captured as CUDA graphs on
+    ``dev``: one warm-up of each on the side stream (counted as
+    ``fit:eager``), whose effects on ``state`` (the parameters, Adam's
+    moments and step, the step index) and on ``drop_gen`` are undone, then
+    the captures (``drop_gen`` registered with the step's graph).  Returns
+    ``(run_steps, run_val)``: an epoch's ``n_steps`` step replays, and one
+    validation replay with its static output."""
+    flat, m, v, t, s = state
+    start = [p.clone() for p in flat]
+    gen_state = drop_gen.get_state()
+    what = "the surrogate fit's step"
+    with graphs.building(dev) as stream:
+        graphs.warm_up(stream, lambda: (train_step(), val_loss()))
+        platform.ROUTES["fit:eager"] += 1
+        drop_gen.set_state(gen_state)
+        step_graph = graphs.capture(train_step, stream, dev, what,
+                                    generators=(drop_gen,), route="fit")
+        val_graph = graphs.capture(val_loss, stream, dev,
+                                   "the surrogate fit's validation loss",
+                                   route="fit")
+    for p, p0 in zip(flat, start):  # after the side stream's work
+        p.copy_(p0)
+    for buf in (*m, *v, t, s):
+        buf.zero_()
+    return (lambda: step_graph.replay(n_steps)), val_graph.replay
 
 
 def regression_report(model, X: np.ndarray, y: np.ndarray) -> dict:
