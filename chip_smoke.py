@@ -117,6 +117,16 @@ Phases (any failure exits non-zero; nothing is caught and turned into 0):
    and the scan, every decode step) the engine made, every flash launch
    of those bf16 prefills on the tensor-core route, and no plain WKV,
    attention or scan may have run on a CUDA tensor, forward or backward.
+   The engine serves on its graph route: every decode must be a replay of
+   its slot's CUDA graph (one warm-up and capture a slot), every prefill
+   eager; three more decode steps of slot 0 must each equal the same step
+   run eagerly on a copy of the slot's cache, bit for bit (logits and
+   every cache leaf), and a second engine whose decode steps run eagerly
+   must give the first 4 requests' tokens again (the eager decode times
+   of the same run).  The graphs' capture seconds, nodes and pool bytes,
+   and the profile of a decode on both routes and of a 512-token prefill
+   (idle share, kernels, the port's kernels' device ms a launch) are
+   kept.
 7b. LM training: ``qwen3-4b``, ``rwkv6-3b`` and ``jamba-v0.1-52b`` at full
    width (depth cut by ``TRAIN_CUTS`` to fit one card with Adam; Jamba
    without its experts), weights from seed 0, bf16 compute with fp32
@@ -204,7 +214,8 @@ into ``NAME.json`` beside ``chip_smoke.json``; copied into an earlier
 tree, it times that tree's kernels the same way.
 ``python3 chip_smoke.py --twins NAME`` runs only phase 1 and phase 7d (the
 twins, with their checks), into ``NAME.json``; ``--graphs NAME`` only
-phase 1 and the graph check, with its cases' device times.
+phase 1 and the graph check, with its cases' device times; ``--serve
+NAME`` only phase 1 and phase 7 (LM serving, with its checks).
 
 Every MOO phase (3-5e, 5b, 5c, 6, 7d) also fails unless every executor
 dispatch and every surrogate fit on the card was answered by graph
@@ -225,8 +236,9 @@ engines with rules), the graphs line (the graph check's cases and every
 phase's ``exec:*`` counts, with the card's name and power limit), the
 twins line (7d, with every phase's seconds),
 the kernels' JSON record (seven kernels; WKV and the scan with their
-decode call's times beside the prefill's, the scan's bound counting its
-exps on the SFUs) and the device JSON line.  Without a CUDA device, or outside the repository, the
+decode call's times beside the prefill's, their device ms a launch inside
+the replayed decode graph and the eager prefill, the scan's bound
+counting its exps on the SFUs) and the device JSON line.  Without a CUDA device, or outside the repository, the
 script exits non-zero and prints no result.
 """
 
@@ -3152,16 +3164,25 @@ def decode_host_pieces(dev, reps: int = 2000) -> dict:
     stream, the foreign call with its launch, ``native.check``.  ``call``
     is the wrapper back to back, ``apply`` its ``autograd.Function`` (what
     the model calls) and ``ops`` the model's entry point in
-    ``kernels.ops``."""
+    ``kernels.ops``; ``graph_replay`` is ``ops`` captured as a CUDA graph
+    and replayed back to back (what a decode step on the engine's graph
+    route pays for the call: none of the pieces above)."""
     import torch
 
+    from repro_torch.kernels import graphs, native, ops, platform
     from repro_torch.kernels import mamba_scan as msc
-    from repro_torch.kernels import native, ops, platform
     from repro_torch.kernels import rwkv6_wkv as rk
 
     lib = native.library()
     idx = dev.index
     t = lambda fn: _us_per_call(fn, reps)  # noqa: E731
+
+    def replayed(fn):
+        with graphs.building(dev) as stream:
+            graphs.warm_up(stream, fn)
+            cap = graphs.capture(fn, stream, dev, "a decode call",
+                                 route="decode_host")
+        return t(cap.graph.replay)
 
     def pieces(mod, args, outs, extra, fn):
         tensors = [x for x in args if x is not None]
@@ -3187,13 +3208,16 @@ def decode_host_pieces(dev, reps: int = 2000) -> dict:
                  lib.rwkv6_wkv)
     wkv.update(call=t(lambda: rk.rwkv6_wkv_cuda(*args)),
                apply=t(lambda: rk.rwkv6_wkv(*args)),
-               ops=t(lambda: ops.rwkv_wkv(*args)))
+               ops=t(lambda: ops.rwkv_wkv(*args)),
+               graph_replay=replayed(lambda: ops.rwkv_wkv(*args)))
 
     args = _scan_inputs(dev, 1, 12, True)
     scan = pieces(msc, args, msc.mamba_scan_cuda(*args), (), lib.mamba_scan)
     scan.update(call=t(lambda: msc.mamba_scan_cuda(*args)),
                 apply=t(lambda: msc.mamba_scan(*args)),
-                ops=t(lambda: ops.mamba_selective_scan(*args)))
+                ops=t(lambda: ops.mamba_selective_scan(*args)),
+                graph_replay=replayed(
+                    lambda: ops.mamba_selective_scan(*args)))
     return {"rwkv6_wkv": wkv, "mamba_scan": scan, "reps": reps}
 
 
@@ -3257,27 +3281,40 @@ def _decode_flops(cparams, cfg) -> float:
     return flops
 
 
-def lm_profile(dev, engine, cfg, max_seq: int) -> dict:
+# the port's kernels by the name of their CUDA function in a profile
+LM_KERNEL_KEYS = {"rwkv6_wkv": "wkv_kernel", "mamba_scan": "scan_kernel",
+                  "flash_attention": "flash_fwd"}
+
+
+def lm_profile(dev, engine, cfg) -> dict:
     """Where one decode step and one 512-token prefill spend their time:
-    wall ms (host clock, mean of 3, ending in a sync), the device's kernel
-    ms and count from the profiler (CUDA activity only, one call), and
-    the device's idle share of the wall time; the five kernels that take
-    most device time."""
+    the decode on the engine's graph route (a replay of slot 0's decode
+    graph at the slot's position) and eagerly (``decode_eager``: the same
+    step closure run on a copy of slot 0's cache), the prefill as the
+    engine calls it: wall ms (host clock, mean of 3, ending in a sync),
+    the device's kernel ms and count from the profiler (CUDA activity
+    only, one call), and the device's idle share of the wall time; the
+    five kernels that take most device time, and each of the port's
+    kernels that ran: its launches and device ms a launch
+    (``kernel_ms``)."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.nn import decode_step, init_cache, prefill
+    from repro_torch.exec import tree_map
 
-    cache = init_cache(cfg, 1, max_seq, device=dev)
-    tok = engine._tokens([[1]])
+    tok = 1
     prompt = engine._tokens(np.arange(max(LM_PROMPTS))[None] % cfg.vocab)
+    copy = tree_map(torch.clone, engine.slot_cache[0])
+    step = engine._decode_fn(copy, torch.full((1, 1), tok, device=dev),
+                             torch.tensor(int(engine.slot_pos[0]),
+                                          device=dev))
     calls = {
-        "decode": lambda: decode_step(engine.cparams, cfg, cache,
-                                      {"tokens": tok}, max(LM_PROMPTS)),
-        "prefill_512": lambda: prefill(engine.cparams, cfg,
-                                       {"tokens": prompt}, max_seq=max_seq),
+        "decode": lambda: engine._decode_call(0, tok),
+        "decode_eager": step,
+        "prefill_512": lambda: engine._prefill(engine.cparams,
+                                               {"tokens": prompt}),
     }
     out = {}
     for name, fn in calls.items():
@@ -3298,10 +3335,18 @@ def lm_profile(dev, engine, cfg, max_seq: int) -> dict:
         busy_ms = sum(dev_t(e) for e in kern) / 1e3
         top = sorted(kern, key=dev_t, reverse=True)[:5]
         seen = busy_ms > 0  # else the profiler recorded no device time
+        ours = {}
+        for kernel, key in LM_KERNEL_KEYS.items():
+            hits = [e for e in kern if key in e.key]
+            n = sum(e.count for e in hits)
+            if n:
+                ours[kernel] = {"launches": n, "device_ms_a_launch": sum(
+                    dev_t(e) for e in hits) / n / 1e3}
         out[name] = {"wall_ms": wall_ms,
                      "device_ms": busy_ms if seen else None,
                      "kernels": sum(e.count for e in kern),
                      "idle_share": 1.0 - busy_ms / wall_ms if seen else None,
+                     "kernel_ms": ours,
                      "top": [[e.key[:60], dev_t(e) / 1e3, e.count]
                              for e in top]}
     return out
@@ -3354,6 +3399,48 @@ def _instance(dev, cfg):
     return params, n_params, init_s
 
 
+def _host_route(*args, **kwargs):
+    """A ``ServeEngine(*args, **kwargs)`` whose decode steps run eagerly
+    on the card: the graph route's step closure, uncaptured."""
+    from repro_torch.serving import ServeEngine
+
+    class HostRoute(ServeEngine):
+        def _decode_call(self, slot: int, token: int):
+            return self._decode_fn(self.slot_cache[slot], self._tokens(
+                [[token]]), int(self.slot_pos[slot]))()[0]
+
+    return HostRoute(*args, **kwargs)
+
+
+def _timed(dev, engine) -> dict:
+    """Time ``engine``'s prefill steps and decode calls, each ending in a
+    device sync: seconds by prompt length (``prefill``), a slot's first
+    decode on the graph route (``first``: its warm-up, capture and
+    replay) and every other decode (``decode``)."""
+    rec = {"prefill": {}, "decode": [], "first": []}
+    inner_prefill, inner_decode = engine._prefill, engine._decode_call
+
+    def timed_prefill(p, b):
+        t1 = time.perf_counter()
+        out = inner_prefill(p, b)
+        _sync(dev)
+        rec["prefill"].setdefault(int(b["tokens"].shape[1]), []).append(
+            time.perf_counter() - t1)
+        return out
+
+    def timed_decode(slot, token):
+        before = engine.decode_graphs[slot]
+        t1 = time.perf_counter()
+        out = inner_decode(slot, token)
+        _sync(dev)
+        first = before is None and engine.decode_graphs[slot] is not None
+        rec["first" if first else "decode"].append(time.perf_counter() - t1)
+        return out
+
+    engine._prefill, engine._decode_call = timed_prefill, timed_decode
+    return rec
+
+
 def lm_serve(dev, arch: str) -> dict:
     """One model at full width, weights random from seed 0; the depth and
     parameter dtype of its fp32 check and of its served instance as
@@ -3367,12 +3454,22 @@ def lm_serve(dev, arch: str) -> dict:
     slots, 8 requests with prompts cycling over 16/64/256/512 tokens, 32
     new tokens each, greedy; prefill and decode calls timed (each ends in a
     device sync).  The launch counts are those of ``engine.run`` alone, and
-    must be one per mixer layer and call."""
+    must be one per mixer layer and call.
+
+    The engine runs on its graph route: the phase fails unless every
+    decode is a replay of its slot's graph (one warm-up and capture a
+    slot) and no prefill is captured, three more steps of slot 0 each
+    equal the same step run eagerly on a copy of the slot's cache (logits
+    and every cache leaf, bit for bit), and an engine whose decode steps
+    run eagerly (``_host_route``) gives the first 4 requests' tokens again
+    on the same card (its decode times are the eager route's, measured in
+    the same run).  The graphs' capture seconds, nodes and shared pool
+    bytes are kept."""
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import platform
+    from repro_torch.kernels import graphs, platform
     from repro_torch.nn import decode_step, forward, init_cache, prefill
     from repro_torch.nn.model import tree_leaves
     from repro_torch.serving import Request, ServeEngine
@@ -3416,43 +3513,34 @@ def lm_serve(dev, arch: str) -> dict:
     max_seq = max(LM_PROMPTS) + LM_MAX_NEW + 8
     engine = ServeEngine(params, cfg, batch=LM_SLOTS, max_seq=max_seq,
                          device=dev)
-    prefill_s, decode_s = {}, []
-    inner_prefill, inner_decode = engine._prefill, engine._decode
-
-    def timed_prefill(p, b):
-        t1 = time.perf_counter()
-        out = inner_prefill(p, b)
-        _sync(dev)
-        prefill_s.setdefault(int(b["tokens"].shape[1]), []).append(
-            time.perf_counter() - t1)
-        return out
-
-    def timed_decode(p, c, b, pos):
-        t1 = time.perf_counter()
-        out = inner_decode(p, c, b, pos)
-        _sync(dev)
-        decode_s.append(time.perf_counter() - t1)
-        return out
-
-    engine._prefill, engine._decode = timed_prefill, timed_decode
+    untimed = engine._prefill
+    now = _timed(dev, engine)
     rng = np.random.default_rng(2)
     reqs = [Request(rid=i, prompt=rng.integers(
         0, cfg.vocab, LM_PROMPTS[i % len(LM_PROMPTS)]).astype(np.int32),
         max_new=LM_MAX_NEW) for i in range(LM_REQUESTS)]
     platform.reset_launches()
+    capture_s = graphs.CAPTURE_S["serve"]
     t0 = time.perf_counter()
     engine.run(reqs)
     _sync(dev)
     wall = time.perf_counter() - t0
+    # untimed from here; nothing left that refers back to the engine, so
+    # it is freed as soon as it is dropped
+    engine._prefill = untimed
+    del engine._decode_call
+    capture_s = graphs.CAPTURE_S["serve"] - capture_s
     launches = platform.launch_counts()
     routes = platform.route_counts()
     plain = _no_plain_on_card(platform, f"{arch} ServeEngine.run")
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     log(f"{arch} ServeEngine.run launches: {launches}; routes: {routes}; "
         f"plain versions on the card: {plain}")
     if routes.get("flash_attention:wgmma", 0) != launches.get(
             "flash_attention", 0):
         fail(f"{arch}: bf16 prefills' flash launches by route {routes}, "
              f"want all {launches.get('flash_attention', 0)} on wgmma")
+    prefill_s, decode_s = now["prefill"], now["first"] + now["decode"]
     n_prefill = sum(len(v) for v in prefill_s.values())
     calls = n_prefill + len(decode_s)
     want = {"rwkv6_wkv": _mixer_layers(cfg, "rwkv") * calls,
@@ -3463,6 +3551,16 @@ def lm_serve(dev, arch: str) -> dict:
             fail(f"{arch}: {name} launched {launches.get(name, 0)} times in "
                  f"ServeEngine.run, want {n_want} ({n_prefill} prefills, "
                  f"{len(decode_s)} decode steps)")
+    # every decode a replay, one warm-up and capture a slot; no prefill
+    # captured
+    graph = engine.graph_stats()
+    want_routes = {"serve:decode:eager": min(LM_SLOTS, LM_REQUESTS),
+                   "serve:decode:graph": len(decode_s)}
+    got_routes = {k: v for k, v in routes.items() if k.startswith("serve:")}
+    if got_routes != want_routes or graph["decode_graphs"] != min(
+            LM_SLOTS, LM_REQUESTS):
+        fail(f"{arch}: ServeEngine.run's steps by route {got_routes}, want "
+             f"{want_routes} ({graph['decode_graphs']} decode graphs)")
     for r in reqs:
         if not r.done or len(r.out) != LM_MAX_NEW or not all(
                 0 <= t < cfg.vocab for t in r.out):
@@ -3474,9 +3572,24 @@ def lm_serve(dev, arch: str) -> dict:
             if t.device.type != torch.device(dev).type:
                 fail(f"{arch}: {name} hold a tensor on {t.device}")
     tokens = sum(len(r.out) for r in reqs)
+    exact = replay_equals_eager(dev, engine, 0, 3, arch)
+    # the eager route on the same card: the first LM_SLOTS requests, one a
+    # slot, must give the graph route's tokens
+    host = _host_route(params, cfg, batch=LM_SLOTS, max_seq=max_seq,
+                       device=dev)
+    eager = _timed(dev, host)
+    eager_reqs = host.run([Request(rid=r.rid, prompt=r.prompt,
+                                   max_new=LM_MAX_NEW)
+                           for r in reqs[:LM_SLOTS]])
+    del host
+    _free()
+    if [r.out for r in eager_reqs] != [r.out for r in reqs[:LM_SLOTS]]:
+        fail(f"{arch}: the graph route's tokens differ from the eager "
+             f"route's on the same requests")
     decode_bytes = _decode_bytes(engine.cparams)
     decode_flops = _decode_flops(engine.cparams, cfg)
-    prof = lm_profile(dev, engine, cfg, max_seq)
+    prof = lm_profile(dev, engine, cfg)
+    ms = lambda v: float(np.median(v)) * 1e3  # noqa: E731
     out = {"layers": cfg.n_layers, "d_model": cfg.d_model,
            "param_dtype": cfg.param_dtype,
            "params_b": n_params / 1e9, "init_s": init_s,
@@ -3484,18 +3597,62 @@ def lm_serve(dev, arch: str) -> dict:
            "fp32_check_err": check, "requests": len(reqs),
            "tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
            "decode_calls": len(decode_s),
-           "decode_ms_median": float(np.median(decode_s)) * 1e3,
+           "decode_ms_median": ms(decode_s),
            "decode_ms_p90": float(np.percentile(decode_s, 90)) * 1e3,
+           "decode_replay_ms_median": ms(now["decode"]),
+           "decode_first_ms": [t * 1e3 for t in now["first"]],
+           "decode_eager_ms_median": ms(eager["decode"]),
+           "decode_eager_ms_p90": float(np.percentile(
+               eager["decode"], 90)) * 1e3,
            "decode_bound_ms": decode_bytes / PEAK_BYTES_S * 1e3,
            "decode_ops_bound_ms": decode_flops / PEAK_BF16_S * 1e3,
-           "prefill_ms": {n: float(np.median(v)) * 1e3
-                          for n, v in sorted(prefill_s.items())},
-           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "prefill_ms": {n: ms(v) for n, v in sorted(prefill_s.items())},
+           "prefill_calls_ms": {n: [t * 1e3 for t in v]
+                                for n, v in sorted(prefill_s.items())},
+           "graphs": {**graph, "capture_s": capture_s,
+                      "replay_exact_steps": exact},
+           "peak_mem_gb": peak_gb,
+           "peak_mem_gb_after_checks":
+               torch.cuda.max_memory_allocated(dev) / 1e9,
            "profile": prof}
     log(f"{arch} serving: {out}")
     del engine, params
     _free()
     return out
+
+
+def replay_equals_eager(dev, engine, slot: int, steps: int,
+                        arch: str) -> int:
+    """``steps`` greedy decode steps of ``slot`` on its graph (the
+    engine's ``_decode_call``), each held to the
+    same step closure run eagerly on a copy of the slot's cache, with the
+    same token and position: the logits and every cache leaf bit for bit.
+    Returns the steps held."""
+    import torch
+
+    from repro_torch.exec import tree_map
+    from repro_torch.nn.model import tree_leaves
+
+    tok = 1
+    for k in range(steps):
+        copy = tree_map(torch.clone, engine.slot_cache[slot])
+        pos = int(engine.slot_pos[slot])
+        want = engine._decode_fn(copy, torch.full((1, 1), tok, device=dev),
+                                 torch.tensor(pos, device=dev))()[0]
+        got = engine._decode_call(slot, tok)
+        if not torch.equal(got, want):
+            fail(f"{arch}: slot {slot}'s decode replay at position {pos} "
+                 f"differs from the eager step by "
+                 f"{float((got.float() - want.float()).abs().max())}")
+        for i, (g, w) in enumerate(zip(tree_leaves(engine.slot_cache[slot]),
+                                       tree_leaves(copy))):
+            if not torch.equal(g, w):
+                fail(f"{arch}: slot {slot}'s cache leaf {i} after the "
+                     f"replay at position {pos} differs from the eager "
+                     f"step's")
+        engine.slot_pos[slot] += 1
+        tok = int(torch.argmax(got[0]))
+    return steps
 
 
 def phase_lm(dev) -> dict:
@@ -4539,6 +4696,17 @@ def _decode_row(timing: dict) -> dict:
             "decode_bound_by": timing["bound_by"]}
 
 
+def _graph_row(lm: dict, arch: str, kernel: str) -> dict:
+    """The device ms a launch of ``kernel`` inside ``arch``'s replayed
+    decode graph and its eager 512-token prefill (the serving phase's
+    profile), None where the profiler recorded none."""
+    prof = lm["models"][arch]["profile"]
+    return {key: prof[call]["kernel_ms"].get(kernel, {}).get(
+        "device_ms_a_launch") for key, call in (
+        ("decode_graph_device_ms", "decode"),
+        ("prefill_device_ms", "prefill_512"))}
+
+
 def main() -> int:
     """Run the phases; exit code 0 only when every check held."""
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -4808,6 +4976,7 @@ def main() -> int:
             for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                       "library_ms", "layout")},
          **_decode_row(lm["timing"]["wkv_decode"]),
+         **_graph_row(lm, "rwkv6-3b", "rwkv6_wkv"),
          "training_launches": training["full"]["rwkv6-3b"]["launches"][
              "rwkv6_wkv"],
          "twin_launches": twins["scripts/torch_smoke_archs.py"]["launches"][
@@ -4821,6 +4990,7 @@ def main() -> int:
             for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                       "library_ms")},
          "kernel_route": "wgmma",
+         **_graph_row(lm, "qwen3-4b", "flash_attention"),
          "training_launches": training["full"]["qwen3-4b"]["launches"][
              "flash_attention"],
          "mesh_launches": {
@@ -4844,6 +5014,7 @@ def main() -> int:
             for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                       "library_ms", "bound_terms_ms")},
          **_decode_row(lm["timing"]["scan_decode"]),
+         **_graph_row(lm, "jamba-v0.1-52b", "mamba_scan"),
          "training_launches": training["full"]["jamba-v0.1-52b"][
              "launches"]["mamba_scan"],
          "moe_mesh_launches": {
@@ -4950,11 +5121,19 @@ def main() -> int:
     print(json.dumps({"lm_serving": {
         arch: {**{k: m[k] for k in ("layers", "param_dtype", "tokens",
                                     "tokens_per_s", "decode_ms_median",
-                                    "decode_ms_p90", "decode_bound_ms",
+                                    "decode_ms_p90",
+                                    "decode_replay_ms_median",
+                                    "decode_eager_ms_median",
+                                    "decode_eager_ms_p90", "decode_bound_ms",
                                     "decode_ops_bound_ms", "prefill_ms",
                                     "peak_mem_gb", "fp32_check_err")},
+               "graphs": {k: m["graphs"][k] for k in (
+                   "capture_s", "decode_nodes",
+                   "pool_bytes", "replay_exact_steps")},
                "idle_share": {k: v["idle_share"]
-                              for k, v in m["profile"].items()}}
+                              for k, v in m["profile"].items()},
+               "kernels_a_decode": {k: v["kernels"]
+                                    for k, v in m["profile"].items()}}
         for arch, m in lm["models"].items()}}), flush=True)
     print(json.dumps({"decode_host_us": lm["timing"]["decode_host_us"]}),
           flush=True)
@@ -5096,6 +5275,29 @@ def phases_main(name: str) -> int:
     return 0
 
 
+def serve_main(name: str) -> int:
+    """``--serve NAME``: the card line, the build, then only phase 7 (LM
+    serving, with its checks), timed as ``main`` times it; written as
+    ``NAME.json`` beside ``chip_smoke.json``."""
+    sys.path.insert(0, str(SRC))
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    card = phase_card()
+    t0 = time.perf_counter()
+    lm = phase_lm(torch.device("cuda", 0))
+    res = {"card": card, "lm_serving_s": time.perf_counter() - t0,
+           "lm": lm}
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / f"{name}.json").write_text(json.dumps(res, indent=1,
+                                                 default=str))
+    print(json.dumps({name: {"lm_serving_s": res["lm_serving_s"]}}),
+          flush=True)
+    return 0
+
+
 def graphs_main(name: str) -> int:
     """``--graphs NAME``: the card line, the build, then only phase 2's
     graph check with its cases' device times, as ``main`` makes them;
@@ -5147,6 +5349,8 @@ if __name__ == "__main__":
         sys.exit(twin_child(sys.argv[2]))
     if sys.argv[1:2] == ["--twins"]:
         sys.exit(twins_main(sys.argv[2] if len(sys.argv) > 2 else "twins"))
+    if sys.argv[1:2] == ["--serve"]:
+        sys.exit(serve_main(sys.argv[2] if len(sys.argv) > 2 else "serve"))
     if sys.argv[1:2] == ["--graphs"]:
         sys.exit(graphs_main(sys.argv[2] if len(sys.argv) > 2 else "graphs"))
     if sys.argv[1:2] == ["--timing"]:

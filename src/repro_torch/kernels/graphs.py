@@ -111,9 +111,12 @@ class Captured:
 
 
 def capture(fn: Callable, stream, device: torch.device, what: str,
-            generators=(), route: str = "") -> Captured:
+            generators=(), route: str = "", pool=None) -> Captured:
     """Record ``fn()`` on ``stream`` (inside :func:`building`) as a CUDA
-    graph with a memory pool of its own.  ``generators`` are the
+    graph with a memory pool of its own, or in ``pool`` (another graph's
+    ``graph.pool()``: graphs that never replay at once can share their
+    memory, each graph's outputs read before the next replay).
+    ``generators`` are the
     ``torch.Generator``s ``fn`` draws from: registered with the graph, so
     that each replay draws what the same call run eagerly at that point
     would.  Raises ``RuntimeError`` naming ``what`` and the line the
@@ -135,7 +138,8 @@ def capture(fn: Callable, stream, device: torch.device, what: str,
             # syncs the device and empties the allocator's cache, which
             # every later allocation of the process would pay
             with torch.cuda.stream(stream):
-                graph.capture_begin(capture_error_mode="thread_local")
+                graph.capture_begin(pool=pool,
+                                    capture_error_mode="thread_local")
                 try:
                     outputs = fn()
                 finally:

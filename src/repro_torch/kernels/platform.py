@@ -71,8 +71,9 @@ PLAIN_BACKWARD_ON_CUDA: collections.Counter = _Counts()
 # "<kernel>:<route>" -> launches by that route; the CUDA graphs
 # (kernels.graphs) add "<program>:eager" (a warm-up before a capture) and
 # "<program>:graph" (a call answered by replays) for the probe executor's
-# solve programs ("exec"), batched evaluation ("eval") and surrogate fits
-# ("fit"), and "eval:first" (a row bucket's first call, run eagerly)
+# solve programs ("exec"), batched evaluation ("eval"), surrogate fits
+# ("fit") and the serving engine's decode steps ("serve:decode"), and
+# "eval:first" (a row bucket's first call, run eagerly)
 ROUTES: collections.Counter = _Counts()
 # CUDA device indices found to be Hopper cards
 _ON_HOPPER: set[int] = set()

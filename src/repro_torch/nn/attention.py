@@ -14,7 +14,10 @@ Decode attention stays plain torch (einsums over the cache), as the
 reference computes it outside any Pallas kernel.  It writes the new key and
 value into the cache tensors *in place* at ``pos`` and returns them: a
 serving engine keeps one cache per slot, so a write touches only its own
-slot.
+slot.  ``pos`` is an ``int`` or a 0-d integer tensor on the cache's
+device; a tensor position is never read back to the host (the rotary
+positions, the write and the mask are computed on the device), so a
+decode step over it can be captured once and replayed at every position.
 
 Sharding (``rules``; DESIGN.md §5), as the reference constrains it:
 
@@ -239,12 +242,16 @@ def init_layer_cache(cfg: ArchConfig, batch: int, max_seq: int,
     return {"k": make(shape, dt, axes), "v": make(shape, dt, axes)}
 
 
-def _write_pos(cache: torch.Tensor, pos: int, new: torch.Tensor) -> None:
-    """``cache[:, pos] = new[:, 0]`` in place.  For a DTensor cache the
-    rank whose sequence shard holds ``pos`` writes its rows of ``new``
-    (laid out as the cache's batch, whole on the sequence dim)."""
+def _write_pos(cache: torch.Tensor, pos, new: torch.Tensor) -> None:
+    """``cache[:, pos] = new[:, 0]`` in place; a tensor ``pos`` is used on
+    the device (``index_copy_``).  For a DTensor cache the rank whose
+    sequence shard holds ``pos`` writes its rows of ``new`` (laid out as
+    the cache's batch, whole on the sequence dim)."""
     if not is_dtensor(cache):
-        cache[:, pos] = new[:, 0].to(cache.dtype)
+        if isinstance(pos, torch.Tensor):
+            cache.index_copy_(1, pos.reshape(1).long(), new.to(cache.dtype))
+        else:
+            cache[:, pos] = new[:, 0].to(cache.dtype)
         return
     from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor._utils import (
@@ -255,20 +262,24 @@ def _write_pos(cache: torch.Tensor, pos: int, new: torch.Tensor) -> None:
     new = new.redistribute(cache.device_mesh, pl)
     shape, offset = compute_local_shape_and_global_offset(
         cache.shape, cache.device_mesh, cache.placements)
-    i = pos - offset[1]
+    i = int(pos) - offset[1]
     if 0 <= i < shape[1]:
         cache.to_local()[:, i] = new.to_local()[:, 0].to(cache.dtype)
 
 
 def decode_attention(p, cfg: ArchConfig, x: torch.Tensor, cache: dict,
-                     pos: int, rules=None):
+                     pos, rules=None):
     """One decode step. x: (B, 1, D); cache k/v: (B, Smax, Hk, dh) sharded
-    on seq over ``model``, written in place at ``pos``. Returns (out
-    (B,1,D), the cache)."""
+    on seq over ``model``, written in place at ``pos`` (an ``int`` or a
+    0-d integer tensor on the cache's device). Returns (out (B,1,D), the
+    cache)."""
     B = x.shape[0]
     H, Hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    positions = torch.full((B, 1), int(pos), dtype=torch.int32,
-                           device=x.device)
+    if isinstance(pos, torch.Tensor):
+        positions = pos.to(torch.int32).reshape(1, 1).expand(B, 1)
+    else:
+        positions = torch.full((B, 1), int(pos), dtype=torch.int32,
+                               device=x.device)
     q, k_new, v_new = _project_qkv(p, cfg, x, positions)
     # Per-token activations are tiny: replicate them over the model axis
     # (which carries the cache *sequence* shards) so the attention einsums

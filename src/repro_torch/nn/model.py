@@ -211,20 +211,24 @@ def prefill(params, cfg: ArchConfig, batch: dict, rules=None,
     return logits[:, -1], cache
 
 
-def decode_step(params, cfg: ArchConfig, cache, batch: dict, pos: int,
+def decode_step(params, cfg: ArchConfig, cache, batch: dict, pos,
                 rules=None):
     """One incremental decode step.
 
     ``batch`` holds ``tokens (B, 1)`` (or ``embeds (B, 1, D)`` for stub-
-    frontend archs); ``pos`` is the write position.  Attention caches are
-    written in place (``nn.attention.decode_attention``).  Returns
-    (logits (B, vocab), new_cache).
+    frontend archs); ``pos`` is the write position, an ``int`` or a 0-d
+    integer tensor on the cache's device (read on the device only, so the
+    step can be captured once and replayed at every position).  Attention
+    caches are written in place (``nn.attention.decode_attention``).
+    Returns (logits (B, vocab), new_cache).
     """
+    if not isinstance(pos, torch.Tensor):
+        pos = int(pos)
     with sharded_region(rules):
         params = cast_params(params, cfg.cdtype(), rules)
         x = _embed_inputs(params, cfg, batch, rules)
         x, new_cache = blocks_apply(params["blocks"], cfg, x, rules,
-                                    mode="decode", cache=cache, pos=int(pos),
+                                    mode="decode", cache=cache, pos=pos,
                                     max_seq=cache_max_seq(cfg, cache))
         logits = _logits(params, cfg, x, rules)
         return logits[:, -1], new_cache

@@ -102,7 +102,10 @@ def _top_k_gating(logits: torch.Tensor, m: MoEConfig):
     topv, topi = topv[..., :m.top_k], topi[..., :m.top_k]
     topv = topv / torch.clamp_min(topv.sum(-1, keepdim=True), 1e-9)
     gates = torch.zeros_like(probs).scatter(-1, topi, topv)
-    oh = torch.nn.functional.one_hot(topi, logits.shape[-1]).to(probs.dtype)
+    # one-hots by comparison: ``one_hot`` reads the ids' range back to the
+    # host on a CPU tensor
+    experts = torch.arange(logits.shape[-1], device=logits.device)
+    oh = (topi[..., None] == experts).to(probs.dtype)
     return gates, oh
 
 
@@ -154,7 +157,11 @@ def _gather_dispatch(xt, gates, oh, capacity: int,
     einsums are O(s*E*C*D).  Returns (expert_in (g,E,C,D), combine_fn(eout)
     -> (g,s,D), loads (g,E)).  ``experts`` (a range of expert ids) keeps
     only the choices of those experts: ``expert_in`` holds their buffers
-    and the combine reads only them; the loads are every expert's."""
+    and the combine reads only them; the loads are every expert's.
+
+    Every choice is written, a dropped one to a row past the buffers that
+    is then cut off (the reference's ``mode="drop"``), so no size depends
+    on the routing and the host reads nothing."""
     g, s, k, E = oh.shape
     D = xt.shape[-1]
     _, pos_e, loads = _expert_positions(oh, base)
@@ -166,14 +173,18 @@ def _gather_dispatch(xt, gates, oh, capacity: int,
         n, slot = experts.stop - experts.start, topi - experts.start
         keep = keep & (slot >= 0) & (slot < n)
         slot = slot.clamp(0, n - 1)
-    gi, si, ki = keep.nonzero(as_tuple=True)
-    expert_in = torch.zeros((g, n, capacity, D), dtype=xt.dtype,
-                            device=xt.device)
-    expert_in[gi, slot[gi, si, ki], pos[gi, si, ki]] = xt[gi, si]
+    gidx = torch.arange(g, device=xt.device)[:, None, None]
+    # flat row of each choice in the (g, n, capacity) buffers; the dropped
+    # choices all go to the extra row g * n * capacity
+    row = torch.where(keep, (gidx * n + slot) * capacity + pos,
+                      g * n * capacity)
+    flat = xt.new_zeros((g * n * capacity + 1, D))
+    flat.index_copy_(0, row.reshape(-1),
+                     xt[:, :, None, :].expand(g, s, k, D).reshape(-1, D))
+    expert_in = flat[:-1].view(g, n, capacity, D)
     gate_k = torch.gather(gates, -1, topi)  # (g, s, k)
 
     def combine(eout):
-        gidx = torch.arange(g, device=xt.device)[:, None, None]
         y_k = eout[gidx, slot, pos.clamp_max(capacity - 1)]  # (g,s,k,D)
         wk = (gate_k * keep).to(eout.dtype)[..., None]
         return (y_k * wk).sum(dim=2)
@@ -182,8 +193,8 @@ def _gather_dispatch(xt, gates, oh, capacity: int,
 
 
 def _routed(p: dict, cfg: ArchConfig, m: MoEConfig, x: torch.Tensor,
-            counts: torch.Tensor | None, pos: int | None,
-            return_counts: bool, experts: slice | None = None):
+            counts: torch.Tensor | None, pos, return_counts: bool,
+            experts: slice | None = None):
     """The routed experts' output (B, S, D), and with ``return_counts``
     the counts (B, E) after the last chunk.  ``p["w1"]``, ``p["w2"]`` (and ``p["w3"]``) hold the
     experts ``experts`` (all of them by default) or a slice of every
@@ -206,9 +217,9 @@ def _routed(p: dict, cfg: ArchConfig, m: MoEConfig, x: torch.Tensor,
     base = None
     if counts is not None:
         # decode step (S == 1, g == B): a chunk boundary resets the loads,
-        # where the full pass starts a fresh dispatch group
-        base = (torch.zeros_like(counts) if pos % m.group_size == 0
-                else counts).float()
+        # where the full pass starts a fresh dispatch group (the reference's
+        # where(fresh, 0, counts), on the device for a tensor ``pos``)
+        base = (counts * (pos % m.group_size != 0)).float()
     if cfg.moe_impl == "gather":
         ein, combine_fn, loads = _gather_dispatch(xt, gates, oh, capacity,
                                                   base, experts)
@@ -319,13 +330,14 @@ def _moe_sharded(p: dict, cfg: ArchConfig, m: MoEConfig, x, rules, counts,
 
 def moe(p: dict, cfg: ArchConfig, m: MoEConfig, x: torch.Tensor,
         rules=None, counts: torch.Tensor | None = None,
-        pos: int | None = None, return_counts: bool = False):
+        pos=None, return_counts: bool = False):
     """x: (B, S, D) -> (B, S, D), or ``(y, counts)`` with
     ``return_counts=True``.
 
     ``counts: (B, E)`` are prior per-expert loads from a decode cache
-    (single-token steps); ``pos`` is the step's global position, used to
-    reset the loads at ``group_size`` chunk boundaries.  The returned
+    (single-token steps); ``pos`` is the step's global position (an ``int``
+    or a 0-d integer tensor on ``x``'s device), used to reset the loads at
+    ``group_size`` chunk boundaries.  The returned
     counts are the loads after this call's last chunk, ready to cache.
     With rules on DTensors, ``y`` is a partial sum over the mesh dims
     that shard the expert weights (the module docstring).

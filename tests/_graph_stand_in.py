@@ -8,8 +8,9 @@ graph and stream objects are replaced (``monkeypatch``):
   constant copied from the host, a number read back, an output whose size
   the host must read), so the programs of the card's paths are held here
   to be capturable.  It counts the operations it sees (the graph's
-  "nodes"), and the generators registered with the graph end it where
-  they began: a capture on the card draws nothing.
+  "nodes"); the tensors it writes in place, and the generators
+  registered with the graph, end it as they began: a capture on the card
+  runs nothing and draws nothing.
 * A replay runs the closure again from the static buffers and copies what
   it returns into the static outputs (what the captured kernels do on the
   card); its launch counts are dropped, since the replay's tally adds
@@ -40,18 +41,34 @@ HOST_SYNC = {"lift_fresh", "lift_fresh_copy", "_local_scalar_dense",
 
 class _RefuseHostSync(TorchDispatchMode):
     """Raise on the operations a CUDA stream capture cannot record; count
-    the others."""
+    the others, and keep a copy of each tensor an operation writes in
+    place, taken before its first write (:meth:`restore` puts them back)."""
 
     def __init__(self):
         super().__init__()
         self.ops = 0
+        self.written = {}  # id -> (tensor, its contents before capture)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if func.overloadpacket.__name__ in HOST_SYNC:
             raise RuntimeError(f"operation not permitted when stream is "
                                f"capturing: {func}")
         self.ops += 1
-        return func(*args, **(kwargs or {}))
+        kwargs = kwargs or {}
+        for i, arg in enumerate(func._schema.arguments):
+            if arg.alias_info is None or not arg.alias_info.is_write:
+                continue
+            val = args[i] if i < len(args) else kwargs.get(arg.name)
+            for t in val if isinstance(val, (list, tuple)) else (val,):
+                if isinstance(t, torch.Tensor) and id(t) not in self.written:
+                    self.written[id(t)] = (t, t.clone())
+        return func(*args, **kwargs)
+
+    def restore(self):
+        for t, before in reversed(self.written.values()):
+            if t.shape == before.shape:  # (an ``out=`` may be resized)
+                t.copy_(before)
+        self.written.clear()
 
 
 class _Stream:
@@ -102,6 +119,7 @@ class StandIn:
 
             def capture_end(self):
                 self.mode.__exit__(None, None, None)
+                self.mode.restore()
                 self.ops = self.mode.ops
                 for g, st in zip(self.generators, self.saved):
                     g.set_state(st)
