@@ -48,7 +48,10 @@ Phases (any failure exits non-zero; nothing is caught and turned into 0):
    seconds and its launches by kernel and route.  Every frontier must be
    non-dominated, no capped method may return a point above the cap, NC
    and PF-AP must launch the descend kernel, PF-AP the dominance kernel,
-   and no plain version may run on the card.  Then ZDT1: PF-AP (60
+   and no plain version may run on the card.  WS is timed on both of its
+   routes (its descent step replayed as a CUDA graph, and the eager loop)
+   from the same bounds, and both must give the same frontier bit for
+   bit.  Then ZDT1: PF-AP (60
    probes) must cover at least WS's frontier (10 probes), as
    ``tests/test_progressive_frontier.py`` asserts.
 5e. The execution planner: ``plan_job`` (24 probes) at train_4k for
@@ -130,9 +133,11 @@ Phases (any failure exits non-zero; nothing is caught and turned into 0):
 7b. LM training: ``qwen3-4b``, ``rwkv6-3b`` and ``jamba-v0.1-52b`` at full
    width (depth cut by ``TRAIN_CUTS`` to fit one card with Adam; Jamba
    without its experts), weights from seed 0, bf16 compute with fp32
-   parameters and Adam moments: ``TRAIN_STEPS`` steps of
-   ``make_train_step`` on one MarkovCorpus batch of B x S tokens drawn
-   through the ``TokenLoader``, each model freed before the next.  The
+   parameters and Adam moments: ``TRAIN_STEPS`` calls of a
+   ``GraphTrainStep`` (the step as a CUDA graph: the first call eager,
+   the second captures, every call after it a replay) on one MarkovCorpus
+   batch of B x S tokens drawn through the ``TokenLoader``, each model
+   freed before the next.  The
    first step's loss and gradient norm must agree with the same step's
    with the kernels forced to their plain versions (``TRAIN_PLAIN_TOL``);
    every loss must be finite and the last below the first; counted over
@@ -140,17 +145,25 @@ Phases (any failure exits non-zero; nothing is caught and turned into 0):
    never runs forward on the card and recomputes once per mixer layer and
    step in the backward (``PLAIN_BACKWARD_ON_CUDA``: the recompute is the
    backward by design), and every flash launch takes the tensor-core
-   route.  Step ms (median of steps 3-6), tokens/s, peak memory and the
-   forward / backward / Adam split of a step (CUDA events from the train
-   step's ``_mark`` instrumentation hook).  Then ``launch.train.main`` at each mixer kind's
+   route; one step ran eagerly and every other replayed.  Step ms (median
+   of steps 3-6, all replays), tokens/s, peak memory, the capture's
+   seconds, nodes and pool bytes, the eager first step's forward /
+   backward / Adam split (CUDA events from the step's ``_mark``
+   instrumentation hook) and one more replay profiled (device ms, idle
+   share).  Then, at full width and depth 2 (``REPLAY_CUTS``: both states
+   fit), two replays each held to an eager ``make_train_step`` step from
+   the same state, bit for bit on every leaf and metric, or within
+   ``CHAOS_FACTOR`` of two eager steps' difference (the control) on the
+   leaves where the control differs.  Then ``launch.train.main`` at each mixer kind's
    smoke config: ``DRIVER_STEPS[0]`` steps with checkpoints, an
    ``ElasticController`` handling a node loss (the planner's
    ``replan_elastic`` at train_4k from 256 chips, the step rebuilt, the
    checkpoint restored onto the card and held to the saved state bit for
    bit), then a second ``main`` that resumes to ``DRIVER_STEPS[1]``: the
    resumed run's losses finite and as many as its steps, the mean of the
-   last 10 losses ``DRIVER_MARGIN`` below the first 10's, and the
-   launches as above in both runs.
+   last 10 losses ``DRIVER_MARGIN`` below the first 10's, the launches as
+   above in both runs, and each run's first step eager and every other
+   replayed (the driver's graph route).
 7c. Distribution: the tenants' structure through probe meshes of the
    one card, ``compressed_psum`` on a one-rank NCCL group, and on a
    (1, 1) ``DeviceMesh`` of that group with the sharding rules: qwen3-4b
@@ -215,7 +228,8 @@ tree, it times that tree's kernels the same way.
 ``python3 chip_smoke.py --twins NAME`` runs only phase 1 and phase 7d (the
 twins, with their checks), into ``NAME.json``; ``--graphs NAME`` only
 phase 1 and the graph check, with its cases' device times; ``--serve
-NAME`` only phase 1 and phase 7 (LM serving, with its checks).
+NAME`` only phase 1 and phase 7 (LM serving, with its checks); ``--train
+NAME`` only phase 1 and phase 7b (LM training, with its checks).
 
 Every MOO phase (3-5e, 5b, 5c, 6, 7d) also fails unless every executor
 dispatch and every surrogate fit on the card was answered by graph
@@ -339,7 +353,14 @@ TRAIN_CUTS = {"qwen3-4b": {"n_layers": 8}, "rwkv6-3b": {"n_layers": 8},
 # repeated shows that each step learns (12.43 -> 5.25, 11.56 -> 0.03,
 # 11.57 -> 0.19); the driver below trains on fresh batches
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 4, 512, 6, 3e-4
-TRAIN_TIMED = slice(2, 6)  # steps 3-6: the median step and the shares
+TRAIN_TIMED = slice(2, 6)  # steps 3-6 (replays): the median step
+# the replays held to eager steps at full width, depth cut so that the
+# graph's state, a copy and the eager step's new state fit at once:
+# 2 layers, Jamba's one Mamba and one attention layer (a plan of 2)
+REPLAY_CUTS = {"qwen3-4b": {"n_layers": 2}, "rwkv6-3b": {"n_layers": 2},
+               "jamba-v0.1-52b": {"n_layers": 2, "moe": None,
+                                  "hybrid": {"period": 2, "attn_index": 1}}}
+REPLAY_STEPS = 2
 # the first step's loss and gradient norm against the same step with the
 # kernels forced to their plain versions, relative: bf16 compute (flash's
 # bf16 tolerance above, tests/test_archs.py's 2e-2)
@@ -2099,6 +2120,62 @@ def compare_methods(task, dev, label: str, capped: bool = False) -> dict:
     return out
 
 
+def ws_routes(task, dev, label: str) -> dict:
+    """WS at expt1's budget on both of its routes from the same bounds:
+    the card's (the descent step captured and replayed ``steps`` times)
+    and the eager loop (``graphs.captures`` answering False for the call),
+    each run twice in turn after a warm-up of each; wall seconds of the
+    timed runs.  Both routes must give the same frontier bit for bit, the
+    graph route one warm-up step and ``steps`` replays a call."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (
+        MOGDConfig,
+        as_problem,
+        estimate_objective_bounds,
+        weighted_sum,
+    )
+    from repro_torch.kernels import graphs, platform
+
+    mogd = MOGDConfig(steps=CMP_MOGD[0], multistart=CMP_MOGD[1])
+    problem = as_problem(task)
+    bounds = estimate_objective_bounds(problem)
+
+    def run(route):
+        platform.reset_launches()
+        with contextlib.ExitStack() as stack:
+            if route == "eager":
+                stack.enter_context(forced(graphs, "captures", False))
+            t0 = time.perf_counter()
+            res = weighted_sum(problem, n_probes=CMP_GRID_PROBES, mogd=mogd,
+                               bounds=bounds, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        routes = platform.route_counts()
+        want = ({"ws:eager": 1, "ws:graph": mogd.steps} if route == "graph"
+                else {})
+        if {k: v for k, v in routes.items() if k.startswith("ws:")} != want:
+            fail(f"{label} WS on the {route} route: routes {routes}")
+        return res, wall
+
+    out = {"graph_s": [], "eager_s": []}
+    results = {}
+    for route in ("graph", "eager", "graph", "eager", "graph", "eager"):
+        res, wall = run(route)
+        if route in results:  # the first run of each is the warm-up
+            out[f"{route}_s"].append(wall)
+        results[route] = res
+    g, e = results["graph"], results["eager"]
+    if not (np.array_equal(g.F, e.F) and np.array_equal(g.X, e.X)):
+        fail(f"{label}: WS's graph route and eager loop give other "
+             f"frontiers")
+    out["points"] = len(g.F)
+    out["capture_s"] = graphs.CAPTURE_S["ws"]
+    log(f"{label} WS routes: {out}")
+    return out
+
+
 def phase_comparison(dev) -> dict:
     """The paper's comparison on the Spark task and on the first
     ``batch_suite()`` workloads, a cost-capped rerun of the Spark task, and
@@ -2124,6 +2201,7 @@ def phase_comparison(dev) -> dict:
     # calls build the kernel library's plans and allocator pools
     compare_methods(task, dev, "comparison warm-up")
     spark = compare_methods(task, dev, "comparison spark")
+    ws_both = ws_routes(task, dev, "comparison spark")
     for name in ("nc", "pf_ap"):
         if spark[name]["launches"].get("descend_batch", 0) <= 0:
             fail(f"comparison: {name} did not launch the descend kernel")
@@ -2171,7 +2249,7 @@ def phase_comparison(dev) -> dict:
                 for n, r in runs.items()}
 
     return {"spark": strip(spark), "spark_capped": strip(capped),
-            "cost_cap": cap,
+            "cost_cap": cap, "ws_routes": ws_both,
             "workloads": {n: strip(r) for n, r in workloads.items()},
             "zdt1": z}
 
@@ -3765,25 +3843,47 @@ def plain_first_step(cfg, params, batch, arch: str) -> dict:
     return out
 
 
+def profile_call(dev, fn, wall_ms: float) -> dict:
+    """One call of ``fn`` under the profiler (CUDA activity only, ending in
+    a sync): the device's kernel ms and count, and its idle share of
+    ``wall_ms`` (None where the profiler recorded no device time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        _sync(dev)
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(getattr(e, "device_time_total",
+                          getattr(e, "cuda_time_total", 0.0))
+                  for e in kern) / 1e3
+    seen = busy_ms > 0
+    return {"device_ms": busy_ms if seen else None,
+            "kernels": sum(e.count for e in kern),
+            "idle_share": 1.0 - busy_ms / wall_ms if seen else None}
+
+
 def train_full(dev, arch: str) -> dict:
     """One model at full width, depth cut by ``TRAIN_CUTS``, weights from
-    seed 0: ``TRAIN_STEPS`` steps of ``make_train_step`` (bf16 compute,
-    fp32 parameters and moments) on one MarkovCorpus batch drawn through
-    the ``TokenLoader``, its first step held to ``plain_first_step``'s.
-    CUDA events from the step's ``_mark`` hook split each step into
-    forward, backward and Adam update; the launch counts are those of the
-    steps alone."""
+    seed 0: ``TRAIN_STEPS`` calls of a ``GraphTrainStep`` (bf16 compute,
+    fp32 parameters and moments; the first eager, then replays) on one
+    MarkovCorpus batch drawn through the ``TokenLoader``, its first step
+    held to ``plain_first_step``'s.  CUDA events from the step's ``_mark``
+    hook split the eager first step into forward, backward and Adam
+    update; one more replay is profiled; the launch counts are those of
+    the steps alone."""
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.data.lm_data import MarkovCorpus, TokenLoader
-    from repro_torch.kernels import platform
+    from repro_torch.kernels import graphs, platform
     from repro_torch.training import (
         AdamConfig,
+        GraphTrainStep,
         TrainStepConfig,
         adam_init,
-        make_train_step,
     )
 
     cfg = get_config(arch).replace(**TRAIN_CUTS[arch])
@@ -3795,28 +3895,34 @@ def train_full(dev, arch: str) -> dict:
     loader.close()
     plain = plain_first_step(cfg, params, batch, arch)
     adam = AdamConfig(lr=TRAIN_LR)
-    opt = adam_init(params, adam)
-    marks: list[dict] = []
+    marks: dict = {}
 
     def mark(label: str) -> None:
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
-        marks[-1][label] = ev
+        marks[label] = ev
 
-    step = make_train_step(cfg, TrainStepConfig(adam=adam), _mark=mark)
+    step = GraphTrainStep(cfg, params, adam_init(params, adam),
+                          TrainStepConfig(adam=adam), _mark=mark)
+    del params  # the step owns the state
+    capture_before = graphs.CAPTURE_S["train"]
     losses, walls, norms = [], [], []
     platform.reset_launches()
-    for _ in range(TRAIN_STEPS):
+    for i in range(TRAIN_STEPS):
         _sync(dev)
         t0 = time.perf_counter()
-        start = torch.cuda.Event(enable_timing=True)
-        start.record()
-        marks.append({"start": start})
-        params, opt, metrics = step(params, opt, batch)
+        if i == 0:
+            mark("start")
+        metrics = step(batch)
         losses.append(float(metrics["loss"]))  # syncs
         walls.append(time.perf_counter() - t0)
         norms.append(float(metrics["grad_norm"]))
     counts = _train_counts(platform, cfg, TRAIN_STEPS, f"{arch} training")
+    routes = platform.route_counts()
+    if (routes.get("train:eager"), routes.get("train:graph")) != (
+            1, TRAIN_STEPS - 1):
+        fail(f"{arch} training: routes {routes}, want one eager step and "
+             f"{TRAIN_STEPS - 1} replays")
     first = {"loss": losses[0], "grad_norm": norms[0]}
     plain_err = {k: abs(first[k] - plain[k]) / abs(plain[k]) for k in plain}
     if not all(e <= TRAIN_PLAIN_TOL for e in plain_err.values()):
@@ -3825,25 +3931,126 @@ def train_full(dev, arch: str) -> dict:
              f"{TRAIN_PLAIN_TOL})")
     if not all(math.isfinite(v) for v in losses) or losses[-1] >= losses[0]:
         fail(f"{arch} training: losses {losses}")
-    parts = {"forward": [], "backward": [], "update": []}
-    for m in marks[TRAIN_TIMED]:
-        prev = m["start"]
-        for name in ("forward", "backward", "update"):
-            parts[name].append(prev.elapsed_time(m[name]))
-            prev = m[name]
+    split, prev = {}, marks["start"]
+    for name in ("forward", "backward", "update"):
+        split[name] = prev.elapsed_time(marks[name])
+        prev = marks[name]
     step_ms = float(np.median(walls[TRAIN_TIMED])) * 1e3
-    device_ms = {k: float(np.median(v)) for k, v in parts.items()}
+    cap = step.captured
+    capture_s = graphs.CAPTURE_S["train"] - capture_before
+    first_ms = walls[0] * 1e3
     out = {"layers": cfg.n_layers, "params_b": n_params / 1e9,
-           "init_s": init_s, "losses": losses,
+           "init_s": init_s, "losses": losses, "route": "graph",
            "step_ms": step_ms, "step_ms_all": [w * 1e3 for w in walls],
            "tokens_per_s": TRAIN_B * TRAIN_S / (step_ms / 1e3),
-           "device_ms": device_ms,
-           "backward_share": device_ms["backward"] / sum(device_ms.values()),
+           "device_ms": split,
+           "backward_share": split["backward"] / sum(split.values()),
+           "capture_s": capture_s, "instantiate_s": cap.instantiate_s,
+           "nodes": cap.nodes, "pool_gb": cap.pool_bytes / 1e9,
+           # steps after which the time a replay saves against the eager
+           # first step has paid for the capture
+           "payback_steps": (capture_s / ((first_ms - step_ms) / 1e3)
+                             if first_ms > step_ms else None),
            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
            "grad_norms": norms, "plain_first": plain,
-           "plain_rel_err": plain_err, **counts}
+           "plain_rel_err": plain_err, "routes": routes, **counts}
+    out["replay"] = profile_call(dev, lambda: step(batch), step_ms)
     log(f"{arch} training: {out}")
-    del params, opt, metrics, step, batch
+    del step, metrics, batch, cap
+    _free()
+    return out
+
+
+def _leaf_items(tree, path: str = ""):
+    """``(path, tensor)`` of every leaf of a dict/list tree."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaf_items(v, f"{path}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaf_items(v, f"{path}/{i}")
+    else:
+        yield path, tree
+
+
+def _leaf_diffs(got, want) -> dict:
+    """The largest absolute difference of each leaf, by path."""
+    out = {}
+    for (path, a), (_, b) in zip(_leaf_items(got), _leaf_items(want)):
+        out[path] = float((a.double() - b.double()).abs().max())
+    return out
+
+
+def train_replay_check(dev, arch: str) -> dict:
+    """At full width and ``REPLAY_CUTS``' depth: two eager
+    ``make_train_step`` steps from one state (the control), then a
+    ``GraphTrainStep``'s eager first call and ``REPLAY_STEPS`` replays,
+    each replay held to an eager step from the state it started from.
+    Every leaf of the state and every metric must equal bit for bit,
+    except on the leaves where the control differs, held to
+    ``CHAOS_FACTOR`` times the control's difference there."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm_data import MarkovCorpus, TokenLoader
+    from repro_torch.exec import tree_map
+    from repro_torch.kernels import platform
+    from repro_torch.training import (
+        AdamConfig,
+        GraphTrainStep,
+        TrainStepConfig,
+        adam_init,
+        make_train_step,
+    )
+
+    cuts = dict(REPLAY_CUTS[arch])
+    cfg = get_config(arch)
+    if "hybrid" in cuts:
+        cuts["hybrid"] = dataclasses.replace(cfg.hybrid, **cuts["hybrid"])
+    cfg = cfg.replace(**cuts)
+    params, n_params, _ = _instance(dev, cfg)
+    loader = TokenLoader(MarkovCorpus(cfg.vocab, seed=0), TRAIN_B, TRAIN_S,
+                         device=dev, seed=1)
+    batch = next(loader)
+    loader.close()
+    ts = TrainStepConfig(adam=AdamConfig(lr=TRAIN_LR))
+    eager = make_train_step(cfg, ts)
+    opt = adam_init(params, ts.adam)
+
+    def state_of(out):
+        return {"params": out[0], "opt": out[1], "metrics": out[2]}
+
+    a = state_of(eager(params, opt, batch))
+    b = state_of(eager(params, opt, batch))
+    control = _leaf_diffs(a, b)
+    del a, b
+    step = GraphTrainStep(cfg, params, opt, ts)
+    step(batch)  # the eager first call
+    platform.reset_launches()
+    worst = {}
+    for _ in range(REPLAY_STEPS):
+        before = tree_map(torch.clone, step.state)
+        got = {**step.state, "metrics": step(batch)}
+        want = state_of(eager(before["params"], before["opt"], batch))
+        for path, x in _leaf_diffs(got, want).items():
+            worst[path] = max(worst.get(path, 0.0), x)
+        del before, got, want
+    if platform.route_counts().get("train:graph") != REPLAY_STEPS:
+        fail(f"{arch} replay check: routes {platform.route_counts()}")
+    off = {p: (x, control[p]) for p, x in worst.items()
+           if x > CHAOS_FACTOR * control[p]}
+    if off:
+        fail(f"{arch} replay check: leaves apart from the eager step "
+             f"beyond the control (replay, control): {off}")
+    out = {"layers": cfg.n_layers, "params_b": n_params / 1e9,
+           "leaves": len(worst),
+           "bit_exact_leaves": sum(x == 0 for x in worst.values()),
+           "control_differs": {p: x for p, x in control.items() if x},
+           "replay_differs": {p: x for p, x in worst.items() if x}}
+    log(f"{arch} replay check: {out}")
+    del step, params, opt, batch, eager
     _free()
     return out
 
@@ -4585,6 +4792,15 @@ def _same_state(got, want, label: str, path: str = "") -> int:
     return 1
 
 
+def _graph_route(platform, steps: int, label: str) -> None:
+    """A driver run's first step eager and every other one replayed."""
+    routes = platform.route_counts()
+    if (routes.get("train:eager"), routes.get("train:graph")) != (
+            1, steps - 1):
+        fail(f"{label}: routes {routes}, want the first of {steps} steps "
+             f"eager and the others replayed")
+
+
 def train_driver(dev, arch: str, root) -> dict:
     """``launch.train.main`` at ``arch``'s smoke config on the card for
     ``DRIVER_STEPS[0]`` steps with checkpoints; an ``ElasticController``
@@ -4615,6 +4831,7 @@ def train_driver(dev, arch: str, root) -> dict:
         r1 = train.main(args + ["--steps", str(DRIVER_STEPS[0])])
     _sync(dev)
     c1 = _train_counts(platform, cfg, DRIVER_STEPS[0], f"{arch} driver")
+    _graph_route(platform, DRIVER_STEPS[0], f"{arch} driver")
     saved = r1.pop("state")
 
     def replan(chips):
@@ -4650,6 +4867,7 @@ def train_driver(dev, arch: str, root) -> dict:
     _sync(dev)
     steps2 = DRIVER_STEPS[1] - DRIVER_STEPS[0]
     c2 = _train_counts(platform, cfg, steps2, f"{arch} resumed driver")
+    _graph_route(platform, steps2, f"{arch} resumed driver")
     r2.pop("state")
     if len(r2["losses"]) != steps2 or not np.isfinite(r2["losses"]).all():
         fail(f"{arch} driver: the resumed run gave {len(r2['losses'])} "
@@ -4673,19 +4891,21 @@ def train_driver(dev, arch: str, root) -> dict:
 
 def phase_lm_training(dev) -> dict:
     """The LM training phase: each mixer kind's model at full width
-    (``train_full``), then the driver with resume at its smoke config
-    (``train_driver``)."""
+    (``train_full``), its replays against eager steps at depth 2
+    (``train_replay_check``), then the driver with resume at its smoke
+    config (``train_driver``)."""
     import shutil
     import tempfile
 
     full = {arch: train_full(dev, arch) for arch in TRAIN_CUTS}
+    replay = {arch: train_replay_check(dev, arch) for arch in REPLAY_CUTS}
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
     try:
         driver = {arch: train_driver(dev, arch, root)
                   for arch in TRAIN_CUTS}
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    return {"full": full, "driver": driver}
+    return {"full": full, "replay": replay, "driver": driver}
 
 
 def _decode_row(timing: dict) -> dict:
@@ -5072,6 +5292,7 @@ def main() -> int:
         for label, runs in (("spark", comparison["spark"]),
                             ("spark_capped", comparison["spark_capped"]))}
         | {"cost_cap": comparison["cost_cap"],
+           "ws_routes": comparison["ws_routes"],
            "workloads_hv": {w: {n: r["hv"] for n, r in runs.items()}
                             for w, runs in comparison["workloads"].items()},
            "zdt1": comparison["zdt1"]}}), flush=True)
@@ -5139,12 +5360,18 @@ def main() -> int:
           flush=True)
     print(json.dumps({"training": {
         "card": card, "full": {
-            arch: {k: m[k] for k in ("layers", "params_b", "step_ms",
+            arch: {k: m[k] for k in ("layers", "params_b", "route",
+                                     "step_ms", "step_ms_all",
                                      "tokens_per_s", "device_ms",
-                                     "backward_share", "peak_mem_gb",
+                                     "backward_share", "capture_s",
+                                     "nodes", "pool_gb", "payback_steps",
+                                     "replay", "peak_mem_gb",
                                      "losses", "grad_norms", "plain_first",
                                      "plain_rel_err")}
             for arch, m in training["full"].items()},
+        "replay_check": {arch: {k: r[k] for k in (
+            "bit_exact_leaves", "leaves", "control_differs",
+            "replay_differs")} for arch, r in training["replay"].items()},
         "driver": {arch: {k: d[k] for k in ("first10", "last10", "step_ms",
                                             "replan_s", "replan_chips")}
                    for arch, d in training["driver"].items()}}}),
@@ -5227,9 +5454,9 @@ def phases_main(name: str) -> int:
     """``--phases NAME``: the card line, the build, then only phases 6
     (the model server), 7 (LM serving) and 7b (LM training), each timed on
     the host's clock as ``main`` times them, with their own checks; written
-    as ``NAME.json`` beside ``chip_smoke.json``.  These phases call the
-    package's public entry points only, so this script run from a copy of
-    an earlier tree times that tree's phases the same way."""
+    as ``NAME.json`` beside ``chip_smoke.json``.  An earlier tree's own
+    copy of this mode times that tree's phases (its eager train step
+    against this tree's graph route, in one call)."""
     sys.path.insert(0, str(SRC))
     import shutil
     import tempfile
@@ -5263,6 +5490,10 @@ def phases_main(name: str) -> int:
                              for a, m in training["full"].items()},
            "train_device_ms": {a: m["device_ms"]
                                for a, m in training["full"].items()},
+           "train_full": {a: {k: v for k, v in m.items()
+                              if k not in ("launches", "plain_backward")}
+                          for a, m in training["full"].items()},
+           "train_replay": training.get("replay"),
            "driver_step_ms": {a: d["step_ms"]
                               for a, d in training["driver"].items()}}
     out = ROOT / "chiprun_out"
@@ -5295,6 +5526,32 @@ def serve_main(name: str) -> int:
                                                  default=str))
     print(json.dumps({name: {"lm_serving_s": res["lm_serving_s"]}}),
           flush=True)
+    return 0
+
+
+def train_main(name: str) -> int:
+    """``--train NAME``: the card line, the build, then only phase 7b (LM
+    training, with its checks), timed as ``main`` times it; written as
+    ``NAME.json`` beside ``chip_smoke.json``."""
+    sys.path.insert(0, str(SRC))
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    card = phase_card()
+    torch.cuda.init()  # the allocator's statistics exist from here
+    t0 = time.perf_counter()
+    training = phase_lm_training(torch.device("cuda", 0))
+    res = {"card": card, "lm_training_s": time.perf_counter() - t0,
+           "training": training}
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / f"{name}.json").write_text(json.dumps(res, indent=1,
+                                                 default=str))
+    print(json.dumps({name: {
+        "lm_training_s": res["lm_training_s"],
+        "step_ms": {a: m["step_ms"] for a, m in training["full"].items()}}}),
+        flush=True)
     return 0
 
 
@@ -5351,6 +5608,8 @@ if __name__ == "__main__":
         sys.exit(twins_main(sys.argv[2] if len(sys.argv) > 2 else "twins"))
     if sys.argv[1:2] == ["--serve"]:
         sys.exit(serve_main(sys.argv[2] if len(sys.argv) > 2 else "serve"))
+    if sys.argv[1:2] == ["--train"]:
+        sys.exit(train_main(sys.argv[2] if len(sys.argv) > 2 else "train"))
     if sys.argv[1:2] == ["--graphs"]:
         sys.exit(graphs_main(sys.argv[2] if len(sys.argv) > 2 else "graphs"))
     if sys.argv[1:2] == ["--timing"]:

@@ -21,7 +21,8 @@ latency pathology Fig. 4(a) highlights.
 
 Each entry point takes ``device=None`` (meaning ``cuda``), which must be
 the problem's device.  WS descends every (weight, start) row in one
-batched autograd loop on that device; NC's solves go through the problem's
+batched autograd step on that device, replayed as a CUDA graph on the
+card (the reference's ``jax.jit(run)``); NC's solves go through the problem's
 MOGD solver (the fused descend kernel for MLP programs on the card);
 NSGA-II's variation is numpy (``np.random.default_rng(seed)``) and only its
 evaluations touch the device.
@@ -36,6 +37,7 @@ import time
 import numpy as np
 import torch
 
+from ..kernels import graphs, platform
 from ..kernels.platform import resolve_device
 from . import pareto
 from .mogd import MOGDConfig, estimate_objective_bounds
@@ -133,7 +135,14 @@ def weighted_sum(
     own.  In fp32 and in the reference's order: non-finite gradient
     entries set to 0, Adam with bias correction (``t`` a float from 1),
     the clip to [0,1].  The starts are ``problem.sample`` of a generator
-    seeded with ``mogd.seed``, ``W * S`` rows reshaped to ``(W, S, D)``."""
+    seeded with ``mogd.seed``, ``W * S`` rows reshaped to ``(W, S, D)``.
+
+    The step is the reference's ``lax.scan`` body, one Adam step over the
+    descent's state ``(x, m, v, t)`` in place.  On the host it runs
+    ``mogd.steps`` times; on the card it is captured once a call and
+    replayed ``mogd.steps`` times (``_replay_descent``: the same bits).
+    The objective is ``problem._batch_fn`` under autograd on both routes.
+    The snap, the evaluation and the argmin run once after the descent."""
     problem = _problem_on(problem, device)
     dev = problem.device
     t0 = time.perf_counter()
@@ -151,22 +160,31 @@ def weighted_sum(
     x0s = problem.sample(torch.Generator().manual_seed(int(mogd.seed)),
                          nW * S).to(**f32)
     w_rows = W.repeat_interleave(S, dim=0)  # row b*S + s -> weight b
-    x = x0s
-    m = torch.zeros_like(x)
-    v = torch.zeros_like(x)
+    # the descent's state, updated in place by each step
+    x, m, v = x0s.clone(), torch.zeros_like(x0s), torch.zeros_like(x0s)
     t = torch.ones((), **f32)
-    for _ in range(mogd.steps):
+
+    def step():
         xg = x.detach().requires_grad_(True)
         with torch.enable_grad():
             loss = torch.sum(w_rows * (batch(xg) - lo) / width)
             (g,) = torch.autograd.grad(loss, xg)
         g = torch.where(torch.isfinite(g), g, torch.zeros_like(g))
-        m = 0.9 * m + 0.1 * g
-        v = 0.999 * v + 0.001 * g * g
-        x = x - mogd.lr * (m / (1 - 0.9 ** t)) / (
-            torch.sqrt(v / (1 - 0.999 ** t)) + 1e-8)
-        x = torch.clamp(x, 0.0, 1.0)
-        t = t + 1.0
+        m1 = 0.9 * m + 0.1 * g
+        v1 = 0.999 * v + 0.001 * g * g
+        x1 = x - mogd.lr * (m1 / (1 - 0.9 ** t)) / (
+            torch.sqrt(v1 / (1 - 0.999 ** t)) + 1e-8)
+        x.copy_(torch.clamp(x1, 0.0, 1.0))
+        m.copy_(m1)
+        v.copy_(v1)
+        t.add_(1.0)
+
+    graph = None  # kept until the tail has read x
+    if graphs.captures(dev):
+        graph = _replay_descent(step, (x, m, v, t), x0s, mogd.steps, dev)
+    else:
+        for _ in range(mogd.steps):
+            step()
     with torch.no_grad():
         snapped = problem.encoder.snap(x)
         fv = batch(snapped).reshape(nW, S, problem.k)
@@ -175,9 +193,34 @@ def weighted_sum(
         best = torch.argmin(score, dim=1)
         rows = torch.arange(nW, device=dev)
         X, F = to_numpy(snapped[rows, best]), to_numpy(fv[rows, best])
+    del graph
     F, X = _pareto_rows(*_apply_value_constraints(problem, F, X))
     el = time.perf_counter() - t0
     return BaselineResult(F, X, [(el, np.nan, len(F))], int(nW), el)
+
+
+def _replay_descent(step, state, x0s, steps: int,
+                    dev) -> graphs.Captured:
+    """WS's descent as a CUDA graph: ``step`` (one Adam step of every row
+    in place over ``state = (x, m, v, t)``) run once eagerly on the side
+    stream (the warm-up: its counts dropped, its effects undone, one
+    ``ws:eager``), captured, and replayed ``steps`` times from ``x0s``
+    (``ws:graph`` counts the replays).  A step that cannot be captured
+    raises; nothing runs eagerly in the graph's place.  Returns the graph,
+    which the caller keeps until it has read ``x``."""
+    x, m, v, t = state
+    with graphs.building(dev) as stream:
+        graphs.warm_up(stream, step)
+        platform.ROUTES["ws:eager"] += 1
+        captured = graphs.capture(step, stream, dev, "WS's descent step",
+                                  route="ws")
+    x.copy_(x0s)  # after the side stream's work
+    m.zero_()
+    v.zero_()
+    t.fill_(1.0)
+    captured.replay(steps)
+    platform.ROUTES["ws:graph"] += steps
+    return captured
 
 
 def normalized_constraints(

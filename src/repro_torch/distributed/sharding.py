@@ -133,16 +133,22 @@ def logical_spec(
     the axis tuple that does divide it (e.g. batch=256 on
     (pod=2, data=16, model=16) shards over (pod, data) and leaves model
     replicated), or full replication if none does.  A physical mesh axis is
-    used at most once per spec (first logical dim wins).  A dimension of
-    size 1 has nothing to split and stays replicated, on mesh axes of size
-    1 too (DTensor cannot merge a sharded singleton dim into another, as a
-    served slot's batch of one would ask on a one-rank mesh).
+    used at most once per spec (first logical dim wins).
+
+    A dimension of size 1 has nothing to split and stays replicated, on
+    mesh axes of size 1 too (DTensor cannot merge a sharded singleton dim
+    into another, as a served slot's batch of one would ask on a one-rank
+    mesh); but it resolves its axes as the reference does and takes them
+    as used.  So on every dimension of size above 1 the spec equals the
+    reference's ``tuple(logical_spec(...))``, and on a size-1 dimension
+    the placement is the same: the only axes the reference can name there
+    have size 1.
     """
     assert len(logical_axes) == len(shape), (logical_axes, shape)
     used: set[str] = set()
     parts = []
     for name, dim in zip(logical_axes, shape):
-        if name is None or dim == 1:
+        if name is None:
             parts.append(None)
             continue
         phys = tuple(
@@ -150,11 +156,11 @@ def logical_spec(
         )
         while phys and dim % axis_size(rules.mesh, phys) != 0:
             phys = phys[:-1]  # largest divisible prefix
-        if phys:
-            used.update(phys)
+        used.update(phys)
+        if phys and dim != 1:
             parts.append(phys if len(phys) > 1 else phys[0])
         else:
-            parts.append(None)  # fallback: replicate this dim
+            parts.append(None)  # fallback, or a singleton: replicate
     return tuple(parts)
 
 

@@ -33,6 +33,7 @@ from .platform import (
     ROUTES,
     PLAIN_BACKWARD_ON_CUDA,
     PLAIN_ON_CUDA,
+    current_tally,
     plain_backward,
     use_kernel,
 )
@@ -139,13 +140,14 @@ class FlashAttention(torch.autograd.Function):
     def setup_context(ctx, inputs, output):
         q, k, v, causal = inputs
         ctx.causal = causal
+        ctx.tally = current_tally()
         ctx.save_for_backward(q, k, v)
 
     @staticmethod
     def backward(ctx, go):
         return plain_backward(_plain_for_backward,
                               (*ctx.saved_tensors, ctx.causal),
-                              ctx.needs_input_grad, (go,))
+                              ctx.needs_input_grad, (go,), ctx.tally)
 
 
 def flash_attention(q, k, v, causal: bool = True) -> torch.Tensor:

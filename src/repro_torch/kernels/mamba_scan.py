@@ -32,6 +32,7 @@ from .platform import (
     LAUNCHES,
     PLAIN_BACKWARD_ON_CUDA,
     ROUTES,
+    current_tally,
     launch,
     meta_backward,
     plain_backward,
@@ -144,6 +145,7 @@ class MambaScan(torch.autograd.Function):
         # not in a separate setup_context, which would have apply bind the
         # arguments to forward's signature on every call (the decode path)
         ctx.save_for_backward(dt, Bt, Ct, xs, A, h0)
+        ctx.tally = current_tally()
         if xs.is_meta:
             return _meta(dt, Bt, Ct, xs, A, h0)
         if use_kernel(xs):
@@ -155,7 +157,7 @@ class MambaScan(torch.autograd.Function):
         if gy.is_meta:
             return meta_backward(ctx)
         return plain_backward(_plain_for_backward, ctx.saved_tensors,
-                              ctx.needs_input_grad, (gy, gh))
+                              ctx.needs_input_grad, (gy, gh), ctx.tally)
 
 
 def mamba_scan(dt, Bt, Ct, xs, A, h0=None):

@@ -30,7 +30,11 @@
   launches nothing yet.  Inside :func:`deferred_counts` the counts that
   the calling thread adds go to the block's tally instead (other threads
   count as ever), and :func:`add_counts` adds that tally again at each
-  replay of the graph, so the counts stay the kernels that ran.
+  replay of the graph, so the counts stay the kernels that ran.  A
+  backward on CUDA tensors runs on autograd's device thread, not on the
+  thread that called it: the recomputing wrappers keep the tally their
+  forward counted into (:func:`current_tally`) and count their backward
+  there (:func:`counting_into`).
 """
 
 from __future__ import annotations
@@ -153,11 +157,26 @@ def deferred_counts():
     """Divert the counts this thread adds inside the block into a tally,
     a list of ``(counter, key, n)`` that the block yields: the launches of
     a CUDA graph's capture, which runs nothing.  Blocks nest."""
-    outer = getattr(_DEFERRED, "tally", None)
     tally = []
+    with counting_into(tally):
+        yield tally
+
+
+def current_tally():
+    """The tally of the :func:`deferred_counts` block this thread is in,
+    or None (its counts go to the counters)."""
+    return getattr(_DEFERRED, "tally", None)
+
+
+@contextlib.contextmanager
+def counting_into(tally):
+    """Inside the block this thread's counts go to ``tally`` (a
+    :func:`current_tally` taken on another thread), or to the counters
+    when it is None."""
+    outer = current_tally()
     _DEFERRED.tally = tally
     try:
-        yield tally
+        yield
     finally:
         _DEFERRED.tally = outer
 
@@ -190,14 +209,16 @@ def route_counts() -> dict:
     return dict(ROUTES)
 
 
-def plain_backward(plain, inputs, needs, grad_outputs) -> tuple:
+def plain_backward(plain, inputs, needs, grad_outputs,
+                   tally=None) -> tuple:
     """The gradients of ``plain(*inputs)`` with respect to the inputs whose
     ``needs`` is true (None for the others), given the gradients of its
     outputs: ``plain`` is run again under ``torch.enable_grad()`` on
     detached copies of the inputs and differentiated with
     ``torch.autograd.grad``.  ``plain`` counts itself (it is handed
-    :data:`PLAIN_BACKWARD_ON_CUDA` as its counter)."""
-    with torch.enable_grad():
+    :data:`PLAIN_BACKWARD_ON_CUDA` as its counter), into ``tally``: the
+    :func:`current_tally` of the forward's thread."""
+    with torch.enable_grad(), counting_into(tally):
         leaves = [t.detach().requires_grad_(bool(n))
                   if isinstance(t, torch.Tensor) else t
                   for t, n in zip(inputs, needs)]

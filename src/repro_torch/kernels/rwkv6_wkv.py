@@ -36,6 +36,7 @@ from .platform import (
     LAUNCHES,
     PLAIN_BACKWARD_ON_CUDA,
     ROUTES,
+    current_tally,
     launch,
     meta_backward,
     plain_backward,
@@ -154,6 +155,7 @@ class RWKV6WKV(torch.autograd.Function):
         # not in a separate setup_context, which would have apply bind the
         # arguments to forward's signature on every call (the decode path)
         ctx.save_for_backward(r, k, v, w, u, S0)
+        ctx.tally = current_tally()
         if r.is_meta:
             return _meta(r, k, v, w, u, S0)
         if use_kernel(r):
@@ -165,7 +167,7 @@ class RWKV6WKV(torch.autograd.Function):
         if gy.is_meta:
             return meta_backward(ctx)
         return plain_backward(_plain_for_backward, ctx.saved_tensors,
-                              ctx.needs_input_grad, (gy, gS))
+                              ctx.needs_input_grad, (gy, gS), ctx.tally)
 
 
 def rwkv6_wkv(r, k, v, w, u, S0=None):

@@ -9,7 +9,11 @@ loader -> async checkpointing -> straggler telemetry.  Resumes from the
 latest checkpoint if one exists.  Checkpoints hold ``{"params", "opt"}``
 in the reference's layout (block leaves stacked over units), so either
 package resumes from the other's.  Runs on the card unless ``--device
-cpu``.
+cpu``.  Without a process group on the card the step is a
+``training.GraphTrainStep`` (built on the restored state): the first step
+runs eagerly and every later one replays its CUDA graph, the
+counterpart of the reference's ``jax.jit`` of the step; on a host, and
+sharded, it is ``make_train_step``'s, eager.
 
 Under a running process group (``torchrun``), the parameters, the Adam
 moments and each batch are sharded over a ``(data, model)`` mesh of its
@@ -32,6 +36,7 @@ import torch
 from ..configs import get_config, get_smoke
 from ..data.lm_data import MarkovCorpus, TokenLoader
 from ..distributed import ShardingRules, named_sharding, shard_tree
+from ..kernels import graphs
 from ..kernels.platform import resolve_device
 from ..nn import init_params, param_axes
 from ..nn.convert import (
@@ -41,7 +46,13 @@ from ..nn.convert import (
     unstack_blocks,
 )
 from ..runtime import CheckpointManager, StragglerMonitor
-from ..training import AdamConfig, TrainStepConfig, adam_init, make_train_step
+from ..training import (
+    AdamConfig,
+    GraphTrainStep,
+    TrainStepConfig,
+    adam_init,
+    make_train_step,
+)
 
 
 def _state_layout(state: dict, fn) -> dict:
@@ -119,9 +130,7 @@ def main(argv=None) -> dict:
         params = shard_tree(rules, params, axes)
     adam = AdamConfig(lr=args.lr)
     opt = adam_init(params, adam)
-    step_fn = make_train_step(
-        cfg, TrainStepConfig(adam=adam, microbatches=args.microbatches),
-        rules, param_axes=None if rules is None else axes)
+    ts = TrainStepConfig(adam=adam, microbatches=args.microbatches)
 
     corpus = MarkovCorpus(cfg.vocab, seed=args.seed)
     sharding = None if rules is None else named_sharding(
@@ -140,6 +149,14 @@ def main(argv=None) -> dict:
             print(f"[train] resumed from step {start}")
         except FileNotFoundError:
             pass
+    if rules is None and graphs.captures(dev):
+        graph_step = GraphTrainStep(cfg, params, opt, ts)
+
+        def step_fn(params, opt, batch):  # the state is the step's own
+            return params, opt, graph_step(batch)
+    else:
+        step_fn = make_train_step(
+            cfg, ts, rules, param_axes=None if rules is None else axes)
 
     # one host without a group, as the reference counts its processes
     n_hosts = 1 if rules is None else torch.distributed.get_world_size()

@@ -186,7 +186,7 @@ def _loss(params, cfg: ArchConfig, batch: dict, rules) -> tuple:
                            dim=1)
         mask = torch.ones(tokens.shape, dtype=torch.float32,
                           device=tokens.device)
-        mask[:, -1] = 0.0
+        mask[:, -1].zero_()  # no host scalar: capturable
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     lab = torch.gather(logits, -1, labels[..., None])[..., 0]

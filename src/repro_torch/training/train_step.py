@@ -84,34 +84,65 @@ def grads_of(params, cfg: ArchConfig, batch,
             {k: v.detach() for k, v in metrics.items()})
 
 
-def make_train_step(cfg: ArchConfig, ts: TrainStepConfig = TrainStepConfig(),
-                    rules=None, param_axes=None, *,
-                    _mark: Callable[[str], None] | None = None) -> Callable:
-    """Returns train_step(params, opt_state, batch) ->
-    (params, opt_state, metrics), ``metrics`` the loss's (detached) plus
-    ``grad_norm``.  Nothing is modified in place.
-
-    ``_mark`` is for instrumentation only (``chip_smoke.py``'s CUDA
-    events): called with ``"forward"`` and ``"backward"`` after each
-    microbatch's loss and gradients and with ``"update"`` after Adam.
-    """
+def _check_dtype(cfg: ArchConfig, ts: TrainStepConfig) -> None:
     if ts.compute_dtype not in (None, cfg.compute_dtype):
         raise ValueError(
             f"TrainStepConfig.compute_dtype={ts.compute_dtype!r} but the "
             f"model computes in {cfg.compute_dtype!r}: set the model "
             f"config's compute_dtype")
+
+
+def step_grads(cfg: ArchConfig, ts: TrainStepConfig, params, batch,
+               note: Callable[[str], None] = lambda _: None, rules=None,
+               reduce_dt: torch.dtype | None = None):
+    """(gradients, metrics) of one step: :func:`grads_of` over the batch,
+    or over ``ts.microbatches`` slices of its leading axis accumulated in
+    fp32 and averaged; each microbatch's gradients in ``reduce_dt`` and in
+    the parameters' placements when it is given."""
+
+    def one(mb):
+        grads, metrics = grads_of(params, cfg, mb, note, rules)
+        if reduce_dt is not None:
+            grads = tree_map(lambda g, p: _like(g.to(reduce_dt), p), grads,
+                             params)
+        return grads, metrics
+
+    n = ts.microbatches
+    if n == 1:
+        # Adam widens each gradient to fp32 as it reads it: the
+        # reference's cast, without a second copy of the gradients
+        return one(batch)
+    acc, metrics = None, None
+    for i in range(n):
+        g, metrics = one({k: a.reshape(n, a.shape[0] // n, *a.shape[1:])[i]
+                          for k, a in batch.items()})
+        if acc is None:
+            acc = [x.float() for x in tree_leaves(g)]
+        else:
+            for a, x in zip(acc, tree_leaves(g)):
+                a.add_(x.float())
+    return _rebuild(params, (a / n for a in acc)), metrics
+
+
+def make_train_step(cfg: ArchConfig, ts: TrainStepConfig = TrainStepConfig(),
+                    rules=None, param_axes=None, *,
+                    _mark: Callable[[str], None] | None = None) -> Callable:
+    """Returns train_step(params, opt_state, batch) ->
+    (params, opt_state, metrics), ``metrics`` the loss's (detached) plus
+    ``grad_norm``.  Nothing is modified in place (the reference's
+    un-jitted step; ``training.GraphTrainStep`` is its compiled
+    counterpart on the card).
+
+    ``_mark`` is for instrumentation only (``chip_smoke.py``'s CUDA
+    events): called with ``"forward"`` and ``"backward"`` after each
+    microbatch's loss and gradients and with ``"update"`` after Adam.
+    """
+    _check_dtype(cfg, ts)
     # the reference pins the gradients to the parameters' sharding in
     # grad_reduce_dtype when it is given both the rules and their axes
     reduce_dt = (_DTYPES[ts.grad_reduce_dtype]
                  if rules is not None and param_axes is not None else None)
     note = _mark or (lambda _: None)
-
-    def grads_in_reduce_dtype(params, batch):
-        grads, metrics = grads_of(params, cfg, batch, note, rules)
-        if reduce_dt is not None:
-            grads = tree_map(lambda g, p: _like(g.to(reduce_dt), p), grads,
-                             params)
-        return grads, metrics
 
     def train_step(params, opt_state, batch):
         if rules is None:
@@ -125,26 +156,8 @@ def make_train_step(cfg: ArchConfig, ts: TrainStepConfig = TrainStepConfig(),
         return new_params, new_opt, metrics
 
     def _step(params, opt_state, batch):
-        n = ts.microbatches
-        if n > 1:
-            # split the batch on its leading axis; accumulate in fp32
-            def mb_slice(i):
-                return {k: a.reshape(n, a.shape[0] // n, *a.shape[1:])[i]
-                        for k, a in batch.items()}
-
-            acc, metrics = None, None
-            for i in range(n):
-                g, metrics = grads_in_reduce_dtype(params, mb_slice(i))
-                if acc is None:
-                    acc = [x.float() for x in tree_leaves(g)]
-                else:
-                    for a, x in zip(acc, tree_leaves(g)):
-                        a.add_(x.float())
-            grads = _rebuild(params, (a / n for a in acc))
-        else:
-            # Adam widens each gradient to fp32 as it reads it: the
-            # reference's cast, without a second copy of the gradients
-            grads, metrics = grads_in_reduce_dtype(params, batch)
+        grads, metrics = step_grads(cfg, ts, params, batch, note, rules,
+                                    reduce_dt)
         new_params, new_opt, gnorm = adam_update(grads, opt_state, params,
                                                  ts.adam)
         note("update")

@@ -9,6 +9,12 @@ nadirs) agree within ±0.5 %, the band of ``tests/test_torch_pf.py``;
 NSGA-II shares numpy's generator with the reference, so its frontiers are
 compared the same way.  ``TestBaselines`` mirrors the reference's
 ``tests/test_progressive_frontier.py::TestBaselines`` on the port alone.
+
+``TestWSGraph``: WS's descent step captured and replayed through the
+stand-in of ``tests/_graph_stand_in.py`` (the card's route, without a
+card) equals the eager loop bit for bit, on the synthetic tasks and on an
+MLP-surrogate task, and equals the reference as ``TestAgainstReference``
+does; a step that syncs with the host raises.
 """
 
 from __future__ import annotations
@@ -22,8 +28,9 @@ import repro.core as J
 import repro.core.baselines as JB
 import repro_torch.core as P
 import repro_torch.core.baselines as PB
+from _graph_stand_in import eager as _eager, stand_in  # noqa: F401
 from repro_torch.core.problem import MOOProblem
-from repro_torch.kernels import platform
+from repro_torch.kernels import graphs, platform
 
 CPU = "cpu"
 HV_BAND = 0.005  # ±0.5 % of the reference's HV
@@ -237,6 +244,61 @@ class TestDevice:
             device=CPU)
         assert len(r.F) >= 1 and np.all(np.isfinite(r.F))
         assert platform.launch_counts() == {}
+
+
+# ---------------------------------------------------------------------------
+# WS's descent as a CUDA graph (the stand-in's route)
+# ---------------------------------------------------------------------------
+
+
+def _ws_problem(name):
+    if name == "mlp":
+        from repro_torch.core.synthetic import mlp_surrogate_task
+
+        return mlp_surrogate_task(seed=0, d=3, arch=(16, 16), device=CPU)
+    return _problems(name)[1]
+
+
+class TestWSGraph:
+    @pytest.mark.parametrize("name", ["zdt1", "dtlz2", "mlp"])
+    def test_replays_equal_the_eager_loop(self, stand_in, name):
+        problem = _ws_problem(name)
+        platform.reset_launches()
+        got = P.weighted_sum(problem, n_probes=8, mogd=FAST, device=CPU)
+        routes = platform.route_counts()
+        assert routes["ws:eager"] == 1
+        assert routes["ws:graph"] == FAST.steps
+        assert graphs.CAPTURE_S["ws"] > 0
+        replays = [g().replays for g in stand_in.graphs
+                   if g() is not None and g().replays == FAST.steps]
+        assert replays  # one graph, replayed once a step
+        want = _eager(stand_in, lambda: P.weighted_sum(
+            problem, n_probes=8, mogd=FAST, device=CPU))
+        np.testing.assert_array_equal(got.F, want.F)
+        np.testing.assert_array_equal(got.X, want.X)
+        assert got.probes == want.probes
+
+    @pytest.mark.parametrize("name", ["sphere2", "zdt1"])
+    def test_replays_equal_the_reference(self, stand_in, monkeypatch, name):
+        _reference_draws(monkeypatch)
+        jp, pp = _problems(name)
+        want = J.weighted_sum(jp, n_probes=8, mogd=J_FAST)
+        platform.reset_launches()
+        got = P.weighted_sum(pp, n_probes=8, mogd=FAST, device=CPU)
+        assert platform.route_counts().get("ws:graph") == FAST.steps
+        assert got.probes == want.probes
+        _same_frontier(want, got)
+
+    def test_a_step_that_syncs_with_the_host_raises(self, stand_in):
+        def objectives(x):
+            return torch.stack([x[0], x[1] * torch.tensor(2.0)])
+
+        problem = MOOProblem(
+            specs=[P.continuous("a", 0, 1), P.continuous("b", 0, 1)],
+            objectives=objectives, k=2, device=CPU)
+        with pytest.raises(RuntimeError, match="WS's descent step"):
+            P.weighted_sum(problem, n_probes=4, mogd=FAST, device=CPU,
+                           bounds=np.array([[0.0, 0.0], [1.0, 2.0]]))
 
 
 # ---------------------------------------------------------------------------

@@ -104,6 +104,11 @@ class FakePodMesh:
     shape = {"pod": 2, "data": 16, "model": 16}
 
 
+class OneRankMesh:
+    axis_names = ("data", "model")
+    shape = {"data": 1, "model": 1}
+
+
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     """One intra-op thread for this file: the suite runs in parallel worker
@@ -149,6 +154,22 @@ class TestLogicalSpec:
         got = logical_spec(p, ("batch", None), (batch, 7))
         assert got == want == tuple(r_logical_spec(r, ("batch", None),
                                                    (batch, 7)))
+
+    @pytest.mark.parametrize("axes,shape", [
+        (("batch", "fsdp"), (1, 8)),        # both map to data
+        (("heads", "kv_heads"), (1, 4)),    # both map to model
+        (("batch", None, "fsdp", "d_ff"), (1, 3, 8, 4))])
+    def test_singleton_dim_keeps_its_axis_used(self, axes, shape):
+        """On a (1, 1) mesh a size-1 dimension stays replicated but takes
+        its axis as the reference does: a later dimension mapped to the
+        same axis does not get it."""
+        p, r = _both(OneRankMesh)
+        got = logical_spec(p, axes, shape)
+        want = tuple(r_logical_spec(r, axes, shape))
+        for g, w, n in zip(got, want, shape):
+            assert g == (None if n == 1 else w), (got, want)
+        assert want[0] is not None  # the reference names the axis there
+        assert got[0] is None
 
 
 class TestQuantize:

@@ -1085,6 +1085,36 @@ class TestBaselinesAndPlannerOnCard:
         assert abs(hv_card - hv_host) <= self.HV_BAND * hv_host, (
             hv_card, hv_host)
 
+    def test_ws_replays_equal_the_eager_loop(self, cuda_device,
+                                             monkeypatch):
+        """WS's descent step replayed as a CUDA graph gives the eager
+        loop's frontier bit for bit (same bounds): one warm-up step and a
+        replay a descent step."""
+        from repro_torch.core import (
+            as_problem,
+            estimate_objective_bounds,
+            weighted_sum,
+        )
+        from repro_torch.kernels import graphs
+
+        problem = as_problem(_spark_task(0, cuda_device))
+        bounds = estimate_objective_bounds(problem)
+
+        def run():
+            return weighted_sum(problem, n_probes=10, mogd=self.MOGD,
+                                bounds=bounds, device=cuda_device)
+
+        platform.reset_launches()
+        got = run()
+        routes = platform.route_counts()
+        assert (routes["ws:eager"], routes["ws:graph"]) == (
+            1, self.MOGD.steps)
+        monkeypatch.setattr(graphs, "captures", lambda device: False)
+        want = run()
+        np.testing.assert_array_equal(got.F, want.F)
+        np.testing.assert_array_equal(got.X, want.X)
+        assert not platform.plain_on_cuda_counts()
+
     def test_nc_grid_on_card_equals_host_given_bounds(self, cuda_device):
         """NC's grid solves alone (bounds given, so no anchor pass): the
         card's frontier HV within ±0.5 % of the host's.  End to end the
